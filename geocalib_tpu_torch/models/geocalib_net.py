@@ -1,0 +1,90 @@
+"""GeoCalib network: backbone + low-level encoder + the two decoder heads.
+
+Port of geocalib_tpu/models/geocalib_net.py with the outputs of the fused
+serving path (geocalib_tpu/models/fused_heads.py): the heads' token
+matrices are stacked into one NMF of batch 2B with tiled bases. The
+block-diagonal 128-wide layout of the TPU path is not carried over; each
+head runs at its own width.
+
+Input image (B, H, W, 3) RGB in [0, 1], H and W multiples of 32. Output
+fields are channel-last as in the JAX package: up_field (B, H, W, 2),
+latitude_field (B, H, W, 1), up_confidence / latitude_confidence (B, H, W).
+"""
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from geocalib_tpu_torch.models.hamburger import LightHamHead, eval_bases, nmf_2d
+from geocalib_tpu_torch.models.modules import ConvModule
+from geocalib_tpu_torch.models.mscan import MSCAN, MSCAN_VARIANTS
+
+Tensor = torch.Tensor
+
+
+class LowLevelEncoder(nn.Module):
+    """Two 3×3 conv + ReLU at full resolution."""
+
+    def __init__(self, feat_dim: int):
+        super().__init__()
+        self.conv1 = ConvModule(3, feat_dim, 3, padding=1)
+        self.conv2 = ConvModule(feat_dim, feat_dim, 3, padding=1)
+
+    def forward(self, image: Tensor) -> Tensor:
+        assert image.shape[2] % 32 == 0 and image.shape[3] % 32 == 0, (
+            "image size must be a multiple of 32")
+        return self.conv2(self.conv1(image))
+
+
+class GeoCalibNet(nn.Module):
+    """Perspective-field network; ``variant`` is "b" (released) or "tiny" (tests)."""
+
+    def __init__(self, variant: str = "b"):
+        super().__init__()
+        dims, ratios, depths = MSCAN_VARIANTS[variant]
+        out_ch = min(64, dims[0])
+        ham_ch = min(512, sum(dims))
+        self.variant = variant
+        self.backbone = MSCAN(dims, ratios, depths)
+        self.low_level = LowLevelEncoder(out_ch)
+        self.up_head = LightHamHead(sum(dims), ham_ch, out_ch)
+        self.up_proj = nn.Conv2d(out_ch, 2, 1)
+        self.lat_head = LightHamHead(sum(dims), ham_ch, out_ch)
+        self.lat_proj = nn.Conv2d(out_ch, 1, 1)
+
+    def front(self, image: Tensor) -> Tuple[Tensor, ...]:
+        """Everything before the NMF: (xu, xl, ll, tokens, bases).
+
+        tokens (2B, h*w, C) stacks the up head's NMF input over the latitude
+        head's; bases (2B, C, R) tiles the evaluation draw over both halves.
+        """
+        x = image.permute(0, 3, 1, 2)
+        hl = self.backbone(x)
+        ll = self.low_level(x)
+        xu, hu = self.up_head.front(hl)
+        xl, hlat = self.lat_head.front(hl)
+        B, C, h, w = hu.shape
+        tokens = torch.cat([hu, hlat], 0).permute(0, 2, 3, 1).reshape(2 * B, h * w, C)
+        bases = eval_bases(B, C, tokens.device, tokens.dtype).repeat(2, 1, 1)
+        return xu, xl, ll, tokens.contiguous(), bases
+
+    def forward(self, image: Tensor) -> Dict[str, Tensor]:
+        xu, xl, ll, tokens, bases = self.front(image)
+        B, C, h, w = xu.shape
+        recon = nmf_2d(tokens, bases).reshape(2 * B, h, w, C).permute(0, 3, 1, 2)
+
+        fu, conf_u = self.up_head.back(xu, recon[:B], ll)
+        fl, conf_l = self.lat_head.back(xl, recon[B:], ll)
+
+        up = self.up_proj(fu).permute(0, 2, 3, 1)
+        up = up / torch.sqrt(torch.clamp(torch.sum(up * up, dim=-1, keepdim=True), min=1e-24))
+        eps = 1e-5  # tanh → clamp → asin in float32: in bf16 the clamp is a no-op
+        lat = torch.tanh(self.lat_proj(fl).permute(0, 2, 3, 1).float())
+        lat = torch.arcsin(torch.clamp(lat, -1 + eps, 1 - eps)).to(up.dtype)
+        return {
+            "up_field": up,
+            "up_confidence": torch.sigmoid(conf_u),
+            "latitude_field": lat,
+            "latitude_confidence": torch.sigmoid(conf_l),
+        }

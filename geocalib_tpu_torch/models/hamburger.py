@@ -1,0 +1,81 @@
+"""LightHamHead decoder (HamNet / SegNeXt) with the Hamburger NMF.
+
+Port of geocalib_tpu/models/hamburger.py as the serving path of
+models/fused_heads.py runs it: each head is split around its NMF, so that
+GeoCalibNet can stack both heads' tokens into one NMF of batch 2B. The
+bases are JAX's deterministic evaluation draw, ``uniform(PRNGKey(0),
+(B, D, R))``, reproduced bit for bit (utils/threefry.py) and tiled over the
+two halves.
+"""
+
+import functools
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from geocalib_tpu_torch.models.modules import (
+    ConvModule,
+    FeatureFusionBlock,
+    resize_bilinear,
+)
+from geocalib_tpu_torch.ops.nmf import nmf_reconstruct
+from geocalib_tpu_torch.utils.threefry import uniform
+
+Tensor = torch.Tensor
+
+NMF_RANK = 64
+NMF_EVAL_STEPS = 7
+NMF_INV_T = 1.0
+NMF_EPS = 1e-6
+
+
+@functools.lru_cache(maxsize=16)
+def _eval_bases_cpu(B: int, D: int, R: int, dtype: torch.dtype) -> Tensor:
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    return torch.from_numpy(uniform(0, (B, D, R), name)).to(dtype)
+
+
+def eval_bases(B: int, D: int, device, dtype: torch.dtype, R: int = NMF_RANK) -> Tensor:
+    """``jax.random.uniform(PRNGKey(0), (B, D, R), dtype)`` on `device`."""
+    return _eval_bases_cpu(B, D, R, dtype).to(device)
+
+
+def nmf_2d(tokens: Tensor, bases: Tensor, steps: int = NMF_EVAL_STEPS) -> Tensor:
+    """Evaluation NMF2D of tokens (B, N, D) from raw bases (B, D, R)."""
+    return nmf_reconstruct(tokens, bases, steps, NMF_INV_T, NMF_EPS)
+
+
+class LightHamHead(nn.Module):
+    """Aggregate the four backbone scales, decompose, fuse low-level features.
+
+    ``front`` runs up to the NMF's input, ``back`` from its output to the
+    head's features and log-confidence.
+    """
+
+    def __init__(self, in_channels: int, ham_channels: int, out_channels: int):
+        super().__init__()
+        self.squeeze = ConvModule(in_channels, ham_channels, 1)
+        self.ham_in = ConvModule(ham_channels, ham_channels, 1)
+        self.ham_out = ConvModule(ham_channels, ham_channels, 1)
+        self.align = ConvModule(ham_channels, out_channels, 1)
+        self.conv_up = ConvModule(out_channels, out_channels, 3, padding=1, bias=False)
+        self.fusion = FeatureFusionBlock(out_channels)
+        self.conv_unc = ConvModule(out_channels, out_channels, 3, padding=1, bias=False)
+        self.conf = nn.Conv2d(out_channels, 1, 1)
+
+    def front(self, hl: Sequence[Tensor]) -> Tuple[Tensor, Tensor]:
+        """(x, h): the squeezed features and the NMF's input, NCHW."""
+        x = self.squeeze(torch.cat([resize_bilinear(f, hl[0].shape[-2:]) for f in hl], dim=1))
+        return x, self.ham_in(x)
+
+    def back(self, x: Tensor, recon: Tensor, ll: Tensor) -> Tuple[Tensor, Tensor]:
+        """(features, log_confidence) at full resolution, NCHW."""
+        x = F.relu(x + self.ham_out(recon))
+        feats = self.align(x)
+        feats = resize_bilinear(feats, (feats.shape[2] * 2, feats.shape[3] * 2))
+        feats = self.conv_up(feats)
+        feats = resize_bilinear(feats, (feats.shape[2] * 2, feats.shape[3] * 2))
+        feats = self.fusion(feats, ll)
+        return feats, self.conf(self.conv_unc(feats))[:, 0]

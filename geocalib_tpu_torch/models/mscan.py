@@ -1,0 +1,51 @@
+"""MSCAN backbone (SegNeXt), port of geocalib_tpu/models/mscan.py.
+
+Variants: "b" is the released model (dims 64/128/320/512, depths 3/3/12/3);
+"tiny" is the test-size variant of the JAX package.
+"""
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from geocalib_tpu_torch.models.modules import (
+    ChannelLayerNorm,
+    MSCANBlock,
+    OverlapPatchEmbed,
+    StemConv,
+)
+
+Tensor = torch.Tensor
+
+MSCAN_VARIANTS = {
+    # dims, mlp_ratios, depths
+    "b": ((64, 128, 320, 512), (8, 8, 4, 4), (3, 3, 12, 3)),
+    "tiny": ((16, 24, 32, 48), (4, 4, 2, 2), (1, 1, 2, 1)),
+}
+
+
+class MSCAN(nn.Module):
+    """Four-stage pyramid; returns features at strides 4, 8, 16, 32 (NCHW).
+
+    Input: RGB in [0, 1], NCHW, mapped to BGR × 255 as the reference weights expect.
+    """
+
+    def __init__(self, dims: Sequence[int], mlp_ratios: Sequence[int], depths: Sequence[int]):
+        super().__init__()
+        self.embeds = nn.ModuleList()
+        self.stages = nn.ModuleList()
+        self.norms = nn.ModuleList()
+        for i, dim in enumerate(dims):
+            self.embeds.append(StemConv(3, dim) if i == 0 else OverlapPatchEmbed(dims[i - 1], dim))
+            self.stages.append(nn.Sequential(*[MSCANBlock(dim, mlp_ratios[i])
+                                               for _ in range(depths[i])]))
+            self.norms.append(ChannelLayerNorm(dim, eps=1e-5))
+
+    def forward(self, image: Tensor) -> Tuple[Tensor, ...]:
+        x = image.flip(1) * 255.0
+        outs = []
+        for embed, stage, norm in zip(self.embeds, self.stages, self.norms):
+            x = norm(stage(embed(x)))
+            outs.append(x)
+        return tuple(outs)
