@@ -1,12 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of geocalib_tpu_torch on one CUDA card: the port still starts.
 
-Builds the CUDA kernels from geocalib_tpu_torch/csrc, serves three
+Builds the CUDA kernels from geocalib_tpu_torch/csrc, serves five
 GeoCalib.calibrate requests at MSCAN-B width on the committed weights
-(weights/geocalib_synth_r05.msgpack), checks that the serving path launched
-both kernels, holds each kernel against its plain PyTorch version at the
-serving shapes of requests a and c, times both, and serves requests a and
-c again with the plain versions to compare the results end to end.
+(weights/geocalib_synth_r05.msgpack), one for each path:
+
+  a  16 views at 480x640, pinhole
+  b  one view, pinhole
+  c  one view, simple_radial, a focal prior
+  d  8 views of one camera, radial, shared intrinsics
+  e  4 views through a division-model lens, simple_divisional, served by a
+     second GeoCalib with the heuristic init
+
+Each request's launch counts are set to 0 just before it and read just after,
+and it must have launched both kernels (the LM kernel in its camera model's
+instance). Then it holds each kernel against its plain PyTorch version at the
+serving shapes of requests a, c, d and e, times the NMF kernel and each of
+the LM kernel's four model instances at request a's shape, and serves
+requests a, c, d and e again with the plain versions to compare the results
+end to end.
 
 Run from the repository root, on a machine with one card:
 
@@ -35,8 +47,9 @@ from geocalib_tpu_torch.models import hamburger
 from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
 from geocalib_tpu_torch.ops import build, lm_system as lm_ops, nmf as nmf_ops
 from geocalib_tpu_torch.optim import lm as lm_solver
-from geocalib_tpu_torch.optim.lm import (LMConfig, flatten_observations, get_trivial_estimation,
-                                         resolve_priors)
+from geocalib_tpu_torch.geometry.camera import Camera
+from geocalib_tpu_torch.optim.lm import (LMConfig, flatten_observations, get_heuristic_estimation,
+                                         get_trivial_estimation, resolve_priors)
 
 faulthandler.dump_traceback_later(600, exit=True)  # a hung kernel becomes a traceback
 
@@ -47,15 +60,23 @@ WEIGHTS = ROOT / "weights" / "geocalib_synth_r05.msgpack"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
-# Float operations per pixel of csrc/lm_system.cu with all five planes, counted
-# by hand from the source (an FMA as two, a sqrt or division as one).
-LM_FLOPS_PER_PIXEL = {"pinhole": 200, "simple_radial": 350}
+# Float operations per pixel of csrc/lm_system.cu with all five planes and the
+# huber loss, counted by hand from the source: an FMA as two, a sqrt, division,
+# negation, max or compare as one, a subexpression the model's functions share
+# (q, sigma', sigma'' of the divisional model) once.
+LM_FLOPS_PER_PIXEL = {"pinhole": 237, "simple_radial": 363, "radial": 440,
+                      "simple_divisional": 395}
+# The distortion of the camera each LM instance is timed with, at request a's shape.
+LM_TIMING_K = {"pinhole": (0.0, 0.0), "simple_radial": (-0.1, 0.0), "radial": (-0.1, 0.02),
+               "simple_divisional": (-0.3, 0.0)}
 
 LM_TOL = 1e-4    # f32 relative deviation of G, H and cost: sums taken in another order
 NMF_TOL = 2e-2   # relative Frobenius error of the bf16 reconstruction, 7 steps
 ANGLE_TOL = 0.05  # degrees, whole path with kernels against the plain versions
 ROLL_TOL = 3.0    # degrees, request a's roll against the rendered views (r05 weights)
 FOCAL_PRIOR = {"focal": 500.0}  # request c's prior, in input pixels
+SHARED_VFOV = 0.9  # radians, request d's one camera
+DIVISION_K1 = -0.3  # request e's lens, division model in normalised coordinates
 
 
 def card_name() -> str:
@@ -75,21 +96,26 @@ def check(ok: bool, message: str) -> None:
         raise RuntimeError(message)
 
 
-def scenes(rng: np.random.Generator, n: int, h: int, w: int):
-    """Rendered pinhole views of a checkered ground plane under a sky, with fog.
+def scenes(rng: np.random.Generator, n: int, h: int, w: int, vfov: float = None,
+           k1: float = 0.0):
+    """Rendered views of a checkered ground plane under a sky, with fog.
 
-    Each camera has a random roll, pitch and vFoV, so the images carry real
-    perspective (vanishing lines, a tilted horizon). Returns the images and
-    the (roll, pitch, vfov) of each view in degrees.
+    Each camera has a random roll and pitch, and a random vFoV unless `vfov`
+    (radians) fixes one for all views, so the images carry real perspective
+    (vanishing lines, a tilted horizon). With k1 the lens follows the division
+    model: a pixel's normalised coordinate p maps to the ray (p / (1 + k1 |p|²), 1).
+    Returns the images and the (roll, pitch, vfov) of each view in degrees.
     """
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
     images = np.empty((n, h, w, 3), np.float32)
     truth = []
     for i in range(n):
         roll, pitch = rng.uniform(-0.3, 0.3, 2)
-        vfov = rng.uniform(0.7, 1.3)
-        f = h / 2 / math.tan(vfov / 2)
-        rays = np.stack([(xx + 0.5 - w / 2) / f, (yy + 0.5 - h / 2) / f, np.ones_like(xx)], -1)
+        fov = rng.uniform(0.7, 1.3) if vfov is None else vfov
+        f = h / 2 / math.tan(fov / 2)
+        p = np.stack([(xx + 0.5 - w / 2) / f, (yy + 0.5 - h / 2) / f], -1)
+        p = p / (1.0 + k1 * (p * p).sum(-1, keepdims=True))
+        rays = np.concatenate([p, np.ones_like(xx)[..., None]], -1)
         cr, sr, cp, sp = math.cos(roll), math.sin(roll), math.cos(pitch), math.sin(pitch)
         rot = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]) @ np.array(
             [[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]])
@@ -103,7 +129,7 @@ def scenes(rng: np.random.Generator, n: int, h: int, w: int):
         fog = np.where(down, np.exp(-t / 60.0), 0.0)[..., None]
         img = ground * fog + sky * (1.0 - fog)
         images[i] = np.clip(img + rng.normal(0.0, 0.02, img.shape), 0.0, 1.0)
-        truth.append([math.degrees(roll), math.degrees(pitch), math.degrees(vfov)])
+        truth.append([math.degrees(roll), math.degrees(pitch), math.degrees(fov)])
     return images, truth
 
 
@@ -157,6 +183,28 @@ def timed_request(calib, name: str, *args, **kw) -> dict:
     return out
 
 
+def zero_counts() -> None:
+    lm_ops.lm_system.launches = 0
+    lm_ops.lm_system.launches_by_model = dict.fromkeys(lm_ops.MODEL_IDS, 0)
+    nmf_ops.nmf.launches = 0
+
+
+def serve(calib, name: str, *args, **kw):
+    """One request as a path of its own: the launch counts are set to 0 just
+    before it and read just after; it must have launched the NMF kernel and
+    the LM kernel's instance for its camera model."""
+    zero_counts()
+    out = timed_request(calib, name, *args, **kw)
+    model = kw.get("camera_model", "pinhole")
+    counts = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches,
+              "lm_system_by_model": {k: n for k, n in lm_ops.lm_system.launches_by_model.items()
+                                     if n}}
+    log(f"request {name}: launches {json.dumps(counts)}")
+    check(counts["nmf"] > 0 and counts["lm_system_by_model"].get(model, 0) > 0,
+          f"request {name}: a kernel of its path was not launched: {counts}")
+    return out, counts
+
+
 @contextlib.contextmanager
 def plain_versions(lm: bool = True, nmf: bool = True):
     """Route the serving path through the plain PyTorch version of the chosen kernels."""
@@ -175,8 +223,9 @@ def rel_dev(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
 
 
-def request_system(calib, images: np.ndarray, camera_model: str, priors: dict):
-    """What calibrate hands the LM solver for one request: planes, initial estimate, config."""
+def request_system(calib, images: np.ndarray, camera_model: str, priors: dict, **options):
+    """What calibrate hands the LM solver for one request: the fields with the
+    priors, the planes, the initial estimate and the config."""
     pre = calib.preprocessor(torch.from_numpy(images).to(calib.device))
     B = images.shape[0]
     with torch.inference_mode():
@@ -184,10 +233,12 @@ def request_system(calib, images: np.ndarray, camera_model: str, priors: dict):
     if "focal" in priors:  # as calibrate scales a focal prior into the crop
         data["prior_focal"] = torch.full((B,), float(priors["focal"]), device=calib.device) * \
             pre["scales"].expand(B, 2)[:, 1]
-    cfg = resolve_priors(data, LMConfig(camera_model=camera_model))
+    cfg = resolve_priors(data, LMConfig(camera_model=camera_model, **options,
+                                        **calib.optimizer_options))
     obs, h, w = flatten_observations(data, cfg)
-    camera, gravity = get_trivial_estimation(data, cfg)
-    return obs, camera, gravity, h, w, cfg
+    init = get_heuristic_estimation if cfg.init_mode == "heuristic" else get_trivial_estimation
+    camera, gravity = init(data, cfg)
+    return data, obs, camera, gravity, h, w, cfg
 
 
 def lm_compare(label: str, obs, camera, gravity, h: int, w: int, cfg) -> float:
@@ -206,28 +257,52 @@ def lm_compare(label: str, obs, camera, gravity, h: int, w: int, cfg) -> float:
     return max_abs
 
 
-def lm_phase(calib, images: np.ndarray) -> dict:
-    """The LM kernel against lm_system_plain on the systems of requests (a) and (c)."""
-    max_abs = lm_compare("request c, simple_radial",
-                         *request_system(calib, images[1:2], "simple_radial", FOCAL_PRIOR))
-    obs, camera, gravity, h, w, cfg = request_system(calib, images, "pinhole", {})
+def lm_timing(obs, camera, gravity, w: int, model: str) -> dict:
+    """Kernel and plain times of one model instance on request a's planes, and its bound."""
     B, N = obs["up_x"].shape
-    max_abs = max(max_abs, lm_compare("request a, pinhole", obs, camera, gravity, h, w, cfg))
-
+    k = torch.tensor(LM_TIMING_K[model], device=camera.f.device).expand(B, 2)
+    camera = Camera(camera.size, camera.f, camera.c, k, model)
+    cfg = LMConfig(camera_model=model)
     cam = camera.data.contiguous()
     grav = gravity.vec3d.contiguous()
     M = pf.manifold_matrix(gravity, True).reshape(B, 6).contiguous()
-    ms = cuda_ms(lambda: lm_ops.launch(obs, cam, grav, M, "pinhole", w, cfg, True))
-    plain_ms = cuda_ms(lambda: lm_ops.lm_system_plain(obs, camera, gravity, h, w, cfg))
+    ms = cuda_ms(lambda: lm_ops.launch(obs, cam, grav, M, model, w, cfg, True))
+    plain_ms = cuda_ms(lambda: lm_ops.lm_system_plain(obs, camera, gravity, N // w, w, cfg))
+    P = cfg.num_params
     nbytes = sum(t.numel() * t.element_size() for t in obs.values()) + (cam.numel()
-              + grav.numel() + M.numel()) * 4 + (B * (3 + 9 + 1)) * 4
-    flops = LM_FLOPS_PER_PIXEL["pinhole"] * B * N
+              + grav.numel() + M.numel()) * 4 + (B * (P + P * P + 1)) * 4
+    flops = LM_FLOPS_PER_PIXEL[model] * B * N
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    log(f"lm kernel B={B} N={N}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"lm kernel {model} B={B} N={N}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP -> {t_ops:.4f} ms")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def lm_phase(calib, calib_h, images: np.ndarray, images_d: np.ndarray,
+             images_e: np.ndarray) -> dict:
+    """The LM kernel against lm_system_plain on the systems of requests a, c, d and e,
+    then each model instance timed at request a's shape."""
+    max_abs = lm_compare("request c, simple_radial",
+                         *request_system(calib, images[1:2], "simple_radial", FOCAL_PRIOR)[1:])
+    for label, cal, imgs, model, opts in [
+            ("request d", calib, images_d, "radial", {"shared_intrinsics": True}),
+            ("request e", calib_h, images_e, "simple_divisional", {})]:
+        data, obs, camera, gravity, h, w, cfg = request_system(cal, imgs, model, {}, **opts)
+        max_abs = max(max_abs, lm_compare(f"{label}, {model}, initial estimate", obs, camera,
+                                          gravity, h, w, cfg))
+        # at the solution the distortion is not 0, so the dphi/dr2 terms are exercised too
+        with torch.inference_mode():
+            res = lm_solver.run_lm(data, cfg)
+        log(f"{label}: k at the solution {res.camera.k[:, :cfg.num_dist].tolist()}")
+        max_abs = max(max_abs, lm_compare(f"{label}, {model}, at the solution", obs, res.camera,
+                                          res.gravity, h, w, cfg))
+
+    _, obs, camera, gravity, h, w, cfg = request_system(calib, images, "pinhole", {})
+    max_abs = max(max_abs, lm_compare("request a, pinhole", obs, camera, gravity, h, w, cfg))
+    per_model = {model: lm_timing(obs, camera, gravity, w, model) for model in lm_ops.MODEL_IDS}
+    return {"max_abs_err": max_abs, **per_model["pinhole"], "library_ms": None,
+            "per_model": per_model}
 
 
 def nmf_phase(calib, images: np.ndarray) -> dict:
@@ -264,6 +339,19 @@ def nmf_phase(calib, images: np.ndarray) -> dict:
             "library_ms": None}
 
 
+def lm_ptxas() -> dict:
+    """Registers and spills of the LM kernel's all-planes instance of each model,
+    from the build's ptxas report (empty when the library was not built here)."""
+    found, entry = {}, None
+    for line in build.build_log["ptxas"].splitlines():
+        if "Compiling entry function" in line:
+            entry = next((m for m, i in lm_ops.MODEL_IDS.items()
+                          if f"lm_partial_kernelILi{i}ELi15E" in line), None)
+        elif entry and ("spill" in line or "Used" in line):
+            found[entry] = (found.get(entry, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return found
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -283,22 +371,36 @@ def main() -> int:
     calib = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16")
     check(calib.device.type == "cuda", f"GeoCalib chose {calib.device}")
 
+    calib_h = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16",
+                                          init_mode="heuristic")
+
     images, truth = scenes(np.random.default_rng(0), 16, 480, 640)
     log(f"rendered views (roll, pitch, vfov in degrees): {json.dumps(np.round(truth, 3).tolist())}")
-    # warm the card, cuDNN and the bases cache at every request's shapes, outside the counted run
-    calib.calibrate(images, batched=True)
-    calib.calibrate(images[0])
-    calib.calibrate(images[1], camera_model="simple_radial", priors=FOCAL_PRIOR)
+    images_d, truth_d = scenes(np.random.default_rng(1), 8, 480, 640, vfov=SHARED_VFOV)
+    images_e, truth_e = scenes(np.random.default_rng(2), 4, 480, 640, k1=DIVISION_K1)
+    requests = {  # name -> (calibrator, image(s), calibrate options)
+        "a": (calib, images, {"batched": True}),
+        "b": (calib, images[0], {}),
+        "c": (calib, images[1], {"camera_model": "simple_radial", "priors": FOCAL_PRIOR}),
+        "d": (calib, images_d, {"camera_model": "radial", "shared_intrinsics": True,
+                                "batched": True}),
+        "e": (calib_h, images_e, {"camera_model": "simple_divisional", "batched": True}),
+    }
+    titles = {"a": "a (16 x 480x640, pinhole, bf16)", "b": "b (1 image, pinhole)",
+              "c": "c (1 image, simple_radial, focal prior)",
+              "d": "d (8 views of one camera, radial, shared intrinsics)",
+              "e": "e (4 views, simple_divisional, heuristic init)"}
+    # warm the card, cuDNN and the bases cache at every request's shapes, outside the counted runs
+    for cal, imgs, kw in requests.values():
+        cal.calibrate(imgs, **kw)
 
-    lm_ops.lm_system.launches = 0
-    nmf_ops.nmf.launches = 0
-    out_a = timed_request(calib, "a (16 x 480x640, pinhole, bf16)", images, batched=True)
-    timed_request(calib, "b (1 image, pinhole)", images[0])
-    out_c = timed_request(calib, "c (1 image, simple_radial, focal prior)", images[1],
-                          camera_model="simple_radial", priors=FOCAL_PRIOR)
-    launches = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches}
-    log(f"launches on the serving path: {json.dumps(launches)}")
-    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    outs, counts = {}, {}
+    for name, (cal, imgs, kw) in requests.items():
+        outs[name], counts[name] = serve(cal, titles[name], imgs, **kw)
+    launches = {"lm_system": sum(c["lm_system"] for c in counts.values()),
+                "nmf": sum(c["nmf"] for c in counts.values())}
+    log(f"launches on the serving paths, a to e: {json.dumps(launches)}")
+    out_a, out_c, out_d, out_e = outs["a"], outs["c"], outs["d"], outs["e"]
     check(out_a["up_field"].shape == (16, 480, 640, 2), "request a: up_field shape")
     check(out_a["camera"].data.shape == (16, 8) and out_c["camera"].k.shape == (2,),
           "camera shapes")
@@ -307,23 +409,43 @@ def main() -> int:
         f"median {np.median(roll_err):.3f} deg")
     check(roll_err.max() <= ROLL_TOL, f"roll error {roll_err.max():.3f} deg > {ROLL_TOL}")
 
-    lm = lm_phase(calib, images)
+    f_d = out_d["camera"].f
+    check(out_d["camera"].data.shape == (8, 8) and torch.equal(f_d, f_d[:1].expand_as(f_d)),
+          f"request d: the shared focal differs across lanes: {f_d[:, 1].tolist()}")
+    vfov_d = np.degrees(out_d["camera"].vfov.cpu().numpy())
+    log(f"request d: shared vfov {vfov_d[0]:.3f} deg against the rendered "
+        f"{math.degrees(SHARED_VFOV):.3f} deg; k {out_d['camera'].k[0].tolist()}")
+    roll_d = np.abs(np.degrees(out_d["gravity"].roll.cpu().numpy()) - np.array(truth_d)[:, 0])
+    log(f"request d: roll error against the rendered views, max {roll_d.max():.3f} deg")
+    k1_e = out_e["camera"].k[:, 0].tolist()
+    roll_e = np.abs(np.degrees(out_e["gravity"].roll.cpu().numpy()) - np.array(truth_e)[:, 0])
+    log(f"request e: k1 {json.dumps([round(k, 4) for k in k1_e])} against the rendered "
+        f"{DIVISION_K1}; roll error max {roll_e.max():.3f} deg, median {np.median(roll_e):.3f} deg")
+
+    lm = lm_phase(calib, calib_h, images, images_d, images_e)
     nmf = nmf_phase(calib, images)
+    for model, n in sorted(lm_ptxas().items()):
+        log(f"lm kernel {model}, all five planes: {n}")
 
     with plain_versions():
-        plain_a = calib.calibrate(images, batched=True)
-        plain_c = calib.calibrate(images[1], camera_model="simple_radial", priors=FOCAL_PRIOR)
-    for req, out, plain in [("a", out_a, plain_a), ("c", out_c, plain_c)]:
-        for name, t, p in [("roll", out["gravity"].roll, plain["gravity"].roll),
-                           ("pitch", out["gravity"].pitch, plain["gravity"].pitch),
-                           ("vfov", out["camera"].vfov, plain["camera"].vfov)]:
+        plain = {name: requests[name][0].calibrate(requests[name][1], **requests[name][2])
+                 for name in ("a", "c", "d", "e")}
+    for req in ("a", "c", "d", "e"):
+        out = outs[req]
+        for name, t, p in [("roll", out["gravity"].roll, plain[req]["gravity"].roll),
+                           ("pitch", out["gravity"].pitch, plain[req]["gravity"].pitch),
+                           ("vfov", out["camera"].vfov, plain[req]["camera"].vfov)]:
             dev = float(torch.rad2deg((t - p).abs()).max())
             log(f"request {req}, kernels vs plain versions: {name} max deviation {dev:.5f} deg")
             check(dev <= ANGLE_TOL, f"request {req}: {name} deviates by {dev} deg > {ANGLE_TOL}")
-        same_stop = bool(torch.equal(out["stop_at"], plain["stop_at"]))
+        same_stop = bool(torch.equal(out["stop_at"], plain[req]["stop_at"]))
         log(f"request {req}, kernels vs plain versions: stop_at equal in every lane: {same_stop}")
         check(same_stop, f"request {req}: stop_at differs from the plain versions")
 
+    by_model = {m: sum(c["lm_system_by_model"].get(m, 0) for c in counts.values())
+                for m in lm_ops.MODEL_IDS}
+    for model, entry in lm["per_model"].items():
+        entry["launches"] = by_model[model]
     kernels = [
         {"name": "lm_system", "route": "cuda", "source": "geocalib_tpu_torch/csrc/lm_system.cu",
          "replaces": "geocalib_tpu/ops/lm_kernel.py:195", "launches": launches["lm_system"],

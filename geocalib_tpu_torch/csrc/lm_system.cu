@@ -8,15 +8,16 @@
 // P = 3 + K Jacobian columns (gravity tangent, focal, distortion), and sums
 //     G = sum w J r  (P),  H = sum w J J^T  (P x P),  cost = mean rho(r) conf
 // without writing J to memory. The math is geometry/planar_fields.py of the
-// port, transcribed line for line.
+// port, transcribed line for line, for all four camera models.
 //
-// What bounds it: memory. It reads the five observation planes once,
-// 5 x 4 bytes x B x N (32.8 MB at B = 16, N = 320 x 320, about 10 us at the
-// H100's 3.35 TB/s); the ~300 flops per pixel are far below the card's
-// float32 rate. The design therefore keeps everything else in registers: the
-// camera, gravity and manifold basis are loaded once per thread, the pixel
-// grid is computed from the pixel index (no xx/yy planes), and each thread
-// streams its pixels with coalesced loads.
+// What bounds it: memory, or nearly as much the float32 operations. It reads
+// the five observation planes once, 5 x 4 bytes x B x N (32.8 MB at B = 16,
+// N = 320 x 320, about 10 us at the H100's 3.35 TB/s), and does 237 to 440
+// flops per pixel by camera model (LM_FLOPS_PER_PIXEL in chip_smoke.py),
+// 6 to 11 us at 67 TFLOP/s. The design therefore keeps everything else in
+// registers: the camera, gravity and manifold basis are loaded once per
+// thread, the pixel grid is computed from the pixel index (no xx/yy planes),
+// and each thread streams its pixels with coalesced loads.
 //
 // Reduction without inter-block waiting: the TPU kernel carries its sums
 // across a sequential grid. Here blocks run in parallel, so each block
@@ -27,9 +28,13 @@
 // another, and the result is deterministic, which the solver's per-lane
 // early stop relies on.
 //
-// The camera model (0: pinhole, 1: simple_radial) and the set of
-// observation planes present are template parameters; the parameter mask,
-// the manifold (given as the basis M), log-focal and the loss are arguments.
+// The camera model (0: pinhole, 1: simple_radial, 2: radial,
+// 3: simple_divisional) and the set of observation planes present are
+// template parameters; the parameter mask, the manifold (given as the basis
+// M), log-focal and the loss are arguments. Each model is a struct of scalar
+// functions of (k1, k2, r2), copied from the distortion specs of
+// geometry/camera.py (_DIST_SPECS); the Jacobian blocks are written once over
+// them, in the general form of planar_fields.J_up_planes / J_lat_planes.
 #include <cuda_runtime.h>
 #include <cfloat>
 
@@ -38,6 +43,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStats = 32;
+constexpr int kNumModels = 4;
 
 enum : int { kUp = 1, kLat = 2, kUpConf = 4, kLatConf = 8 };
 
@@ -56,6 +62,107 @@ struct LMArgs {
   float* cost;        // (B,)
   int N, w, loss_id, mask_bits, log_focal;
   float up_a2, lat_a2;
+};
+
+// ---------------------------------------------------------------------------
+// Distortion models: s (distort scale), phi with offset = phi * uv, dphi/dr2,
+// ds/dk and dphi/dk, su (undistort scale), dsu/dr2 and dsu/dk, all scalar
+// functions of k1, k2 and r2. K is the number of distortion parameters.
+// ---------------------------------------------------------------------------
+
+template <int MODEL>
+struct Dist;
+
+template <>
+struct Dist<0> {  // pinhole
+  static constexpr int K = 0;
+  __device__ static float s(float, float, float) { return 1.f; }
+  __device__ static float phi(float, float, float) { return 0.f; }
+  __device__ static float dphi_dr2(float, float, float) { return 0.f; }
+  __device__ static void ds_dk(float, float, float, float*) {}
+  __device__ static void dphi_dk(float, float, float, float*) {}
+  __device__ static float su(float, float, float) { return 1.f; }
+  __device__ static float dsu_dr2(float, float, float) { return 0.f; }
+  __device__ static void dsu_dk(float, float, float, float*) {}
+};
+
+template <>
+struct Dist<1> {  // simple_radial: s = 1 + k1 r2, su = 1 - k1 r2
+  static constexpr int K = 1;
+  __device__ static float s(float k1, float, float r2) { return 1.f + k1 * r2; }
+  __device__ static float phi(float k1, float, float) { return 2.f * k1; }
+  __device__ static float dphi_dr2(float, float, float) { return 0.f; }
+  __device__ static void ds_dk(float, float, float r2, float* o) { o[0] = r2; }
+  __device__ static void dphi_dk(float, float, float, float* o) { o[0] = 2.f; }
+  __device__ static float su(float k1, float, float r2) { return 1.f - k1 * r2; }
+  __device__ static float dsu_dr2(float k1, float, float) { return -k1; }
+  __device__ static void dsu_dk(float, float, float r2, float* o) { o[0] = -r2; }
+};
+
+template <>
+struct Dist<2> {  // radial: s = 1 + k1 r2 + k2 r2^2, su = 1 - k1 r2 + (3 k1^2 - k2) r2^2
+  static constexpr int K = 2;
+  __device__ static float s(float k1, float k2, float r2) { return 1.f + r2 * (k1 + k2 * r2); }
+  __device__ static float phi(float k1, float k2, float r2) { return 2.f * k1 + 4.f * k2 * r2; }
+  __device__ static float dphi_dr2(float, float k2, float) { return 4.f * k2; }
+  __device__ static void ds_dk(float, float, float r2, float* o) {
+    o[0] = r2;
+    o[1] = r2 * r2;
+  }
+  __device__ static void dphi_dk(float, float, float r2, float* o) {
+    o[0] = 2.f;
+    o[1] = 4.f * r2;
+  }
+  __device__ static float su(float k1, float k2, float r2) {
+    return 1.f + r2 * (-k1 + (3.f * k1 * k1 - k2) * r2);
+  }
+  __device__ static float dsu_dr2(float k1, float k2, float r2) {
+    return -k1 + 2.f * (3.f * k1 * k1 - k2) * r2;
+  }
+  __device__ static void dsu_dk(float k1, float, float r2, float* o) {
+    o[0] = 6.f * k1 * (r2 * r2) - r2;
+    o[1] = -(r2 * r2);
+  }
+};
+
+// simple_divisional, through sigma(t) = 2 / (1 + q), q = sqrt(1 - 4t), t = k1 r2.
+// The guards are the reference's, taken with the same roundings as the plain
+// version (no contraction into an FMA): the argument of the square root is
+// clipped at 1e-6, and a denominator that is exactly 0 is replaced by 1e6.
+template <>
+struct Dist<3> {
+  static constexpr int K = 1;
+  __device__ static float q(float k1, float r2) {
+    return sqrtf(fmaxf(__fsub_rn(1.f, __fmul_rn(__fmul_rn(4.f, k1), r2)), 1e-6f));
+  }
+  __device__ static float sigma1(float k1, float r2) {  // 4 / (q (1+q)^2)
+    const float qq = q(k1, r2), a = 1.f + qq;
+    return 4.f / (qq * (a * a));
+  }
+  __device__ static float sigma2(float k1, float r2) {  // 8 (1/(q^3 (1+q)^2) + 2/(q^2 (1+q)^3))
+    const float qq = q(k1, r2), a = 1.f + qq;
+    return 8.f * (1.f / (qq * qq * qq * (a * a)) + 2.f / (qq * qq * (a * a * a)));
+  }
+  __device__ static float guard(float d) { return d == 0.f ? 1e6f : d; }
+  __device__ static float den(float k1, float r2) { return __fadd_rn(1.f, __fmul_rn(k1, r2)); }
+  __device__ static float s(float k1, float, float r2) { return 2.f / (1.f + q(k1, r2)); }
+  __device__ static float phi(float k1, float, float r2) { return 2.f * k1 * sigma1(k1, r2); }
+  __device__ static float dphi_dr2(float k1, float, float r2) {
+    return 2.f * (k1 * k1) * sigma2(k1, r2);
+  }
+  __device__ static void ds_dk(float k1, float, float r2, float* o) { o[0] = sigma1(k1, r2) * r2; }
+  __device__ static void dphi_dk(float k1, float, float r2, float* o) {
+    o[0] = 2.f * sigma1(k1, r2) + 2.f * k1 * r2 * sigma2(k1, r2);
+  }
+  __device__ static float su(float k1, float, float r2) { return 1.f / guard(den(k1, r2)); }
+  __device__ static float dsu_dr2(float k1, float, float r2) {
+    const float d = den(k1, r2);
+    return -k1 / guard(__fmul_rn(d, d));
+  }
+  __device__ static void dsu_dk(float k1, float, float r2, float* o) {
+    const float d = den(k1, r2);
+    o[0] = -r2 / guard(__fmul_rn(d, d));
+  }
 };
 
 // Robust loss on x = r^2 / a^2: value rho and IRLS weight rho' (losses.py).
@@ -93,13 +200,17 @@ __device__ __forceinline__ void accumulate(float* acc, const float* J, float r, 
   }
 }
 
-template <int K, int F>
+template <int MODEL, int F>
 __global__ void __launch_bounds__(kThreads) lm_partial_kernel(LMArgs a) {
+  using D = Dist<MODEL>;
+  constexpr int K = D::K;
+  constexpr int KA = K > 0 ? K : 1;  // array extent
+  constexpr bool kDist = K > 0;
   constexpr int P = 3 + K;
   constexpr int S = P + P * (P + 1) / 2 + 1;
   const int b = blockIdx.y;
   const float* cb = a.cam + b * 8;
-  const float fx = cb[2], fy = cb[3], cx = cb[4], cy = cb[5], k1 = cb[6];
+  const float fx = cb[2], fy = cb[3], cx = cb[4], cy = cb[5], k1 = cb[6], k2 = cb[7];
   const float ga = a.grav[b * 3], gb = a.grav[b * 3 + 1], gc = a.grav[b * 3 + 2];
   float m[3][2];
 #pragma unroll
@@ -124,23 +235,23 @@ __global__ void __launch_bounds__(kThreads) lm_partial_kernel(LMArgs a) {
     const float v = (static_cast<float>(n / a.w) - cy) / fy;
     const float gx = a.log_focal ? -u : -u / fx;
     const float gy = a.log_focal ? -v : -v / fy;
-    const float r2 = u * u + v * v;
+    const float r2 = __fadd_rn(__fmul_rn(u, u), __fmul_rn(v, v));
 
     if (F & kUp) {
       const float px = ga - gc * u, py = gb - gc * v;
       float tx = px, ty = py;
-      float D11 = 1.f, D12 = 0.f, D22 = 1.f, inner = 0.f, phi = 0.f, ox = 0.f, oy = 0.f;
-      if (K == 1) {
-        const float s = 1.f + k1 * r2;
-        phi = 2.f * k1;
+      float s = 1.f, phi = 0.f, dphi = 0.f, inner = 0.f;
+      float D11 = 1.f, D12 = 0.f, D22 = 1.f;
+      if constexpr (kDist) {
+        s = D::s(k1, k2, r2);
+        phi = D::phi(k1, k2, r2);
+        dphi = D::dphi_dr2(k1, k2, r2);
         inner = u * px + v * py;
         D11 = s + phi * u * u;
         D12 = phi * u * v;
         D22 = s + phi * v * v;
         tx = s * px + phi * u * inner;
         ty = s * py + phi * v * inner;
-        ox = phi * u;
-        oy = phi * v;
       }
       const float inv = 1.f / fmaxf(sqrtf(tx * tx + ty * ty), 1e-12f);
       const float rx = a.up_x[lane + n] - tx * inv;
@@ -169,34 +280,39 @@ __global__ void __launch_bounds__(kThreads) lm_partial_kernel(LMArgs a) {
         J0[d] = n11 * td0 + n12 * td1;
         J1[d] = n12 * td0 + n22 * td1;
       }
-      // focal block
-      float tf0, tf1;
-      if (K == 1) {  // dphi/dr2 = 0 for simple_radial
-        const float J00 = px * ox + inner * phi + ox * px - gc * D11;
-        const float J01 = px * oy + ox * py - gc * D12;
-        const float J10 = py * ox + oy * px - gc * D12;
-        const float J11 = py * oy + inner * phi + oy * py - gc * D22;
+      // focal block: J_t2uv @ d(u, v)/d(focal step)
+      float tf0 = -gc * gx, tf1 = -gc * gy;
+      if constexpr (kDist) {
+        const float ox = phi * u, oy = phi * v;
+        const float J00 = px * ox + inner * (phi + 2.f * dphi * u * u) + ox * px - gc * D11;
+        const float J01 = px * oy + inner * (2.f * dphi * u * v) + ox * py - gc * D12;
+        const float J10 = py * ox + inner * (2.f * dphi * v * u) + oy * px - gc * D12;
+        const float J11 = py * oy + inner * (phi + 2.f * dphi * v * v) + oy * py - gc * D22;
         tf0 = J00 * gx + J01 * gy;
         tf1 = J10 * gx + J11 * gy;
-      } else {
-        tf0 = -gc * gx;
-        tf1 = -gc * gy;
       }
       J0[2] = n11 * tf0 + n12 * tf1;
       J1[2] = n12 * tf0 + n22 * tf1;
-      if (K == 1) {  // ds/dk1 = r2, dphi/dk1 = 2
-        const float pre0 = px * r2 + 2.f * inner * u;
-        const float pre1 = py * r2 + 2.f * inner * v;
-        J0[P - 1] = n11 * pre0 + n12 * pre1;
-        J1[P - 1] = n12 * pre0 + n22 * pre1;
+      // distortion block
+      if constexpr (kDist) {
+        float dk[KA], dpk[KA];
+        D::ds_dk(k1, k2, r2, dk);
+        D::dphi_dk(k1, k2, r2, dpk);
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+          const float pre0 = px * dk[i] + dpk[i] * inner * u;
+          const float pre1 = py * dk[i] + dpk[i] * inner * v;
+          J0[3 + i] = n11 * pre0 + n12 * pre1;
+          J1[3 + i] = n12 * pre0 + n22 * pre1;
+        }
       }
       accumulate<P>(acc, J0, rx, wgt, mask);
       accumulate<P>(acc, J1, ry, wgt, mask);
     }
 
     if (F & kLat) {
-      const float su = K == 1 ? 1.f - k1 * r2 : 1.f;
-      const float dsu = K == 1 ? -k1 : 0.f;
+      const float su = D::su(k1, k2, r2);
+      const float dsu = D::dsu_dr2(k1, k2, r2);
       const float ud = su * u, vd = su * v;
       const float inv = 1.f / sqrtf(ud * ud + vd * vd + 1.f);
       const float gw = ga * ud + gb * vd + gc;
@@ -221,7 +337,13 @@ __global__ void __launch_bounds__(kThreads) lm_partial_kernel(LMArgs a) {
       const float jw0 = su * gx + 2.f * dsu * u * dot;
       const float jw1 = su * gy + 2.f * dsu * v * dot;
       J[2] = e0 * jw0 + e1 * jw1;
-      if (K == 1) J[P - 1] = -r2 * (e0 * u + e1 * v);  // dsu/dk1 = -r2
+      if constexpr (kDist) {
+        float gam[KA];
+        D::dsu_dk(k1, k2, r2, gam);
+        const float ev = e0 * u + e1 * v;
+#pragma unroll
+        for (int i = 0; i < K; ++i) J[3 + i] = gam[i] * ev;
+      }
       accumulate<P>(acc, J, rl, wgt, mask);
     }
   }
@@ -274,48 +396,59 @@ __global__ void lm_reduce_kernel(LMArgs a, int blocks) {
   }
 }
 
-template <int K, int F>
+template <int MODEL, int F>
 void launch(const LMArgs& a, int B, int blocks, cudaStream_t stream) {
-  lm_partial_kernel<K, F><<<dim3(blocks, B), kThreads, 0, stream>>>(a);
-  lm_reduce_kernel<3 + K><<<B, 32, 0, stream>>>(a, blocks);
+  lm_partial_kernel<MODEL, F><<<dim3(blocks, B), kThreads, 0, stream>>>(a);
+  lm_reduce_kernel<3 + Dist<MODEL>::K><<<B, 32, 0, stream>>>(a, blocks);
 }
 
-template <int K>
-void dispatch_flags(const LMArgs& a, int flags, int B, int blocks, cudaStream_t s) {
+// Launches the instance for one plane set; false for a set with no instance.
+template <int MODEL>
+bool dispatch_flags(const LMArgs& a, int flags, int B, int blocks, cudaStream_t s) {
   switch (flags) {
-#define GC_CASE(F) \
-  case F:          \
-    launch<K, F>(a, B, blocks, s); \
-    break;
+#define GC_CASE(F)                    \
+  case F:                             \
+    launch<MODEL, F>(a, B, blocks, s); \
+    return true;
     // the plane sets the C entry can form: confidences only beside their field
     GC_CASE(1) GC_CASE(2) GC_CASE(3) GC_CASE(5) GC_CASE(7) GC_CASE(10) GC_CASE(11) GC_CASE(15)
 #undef GC_CASE
     default:
-      break;
+      return false;
   }
 }
 
+constexpr int kNumParams[kNumModels] = {3 + Dist<0>::K, 3 + Dist<1>::K, 3 + Dist<2>::K,
+                                        3 + Dist<3>::K};
+
 }  // namespace
 
+// Returns a cudaError_t: cudaErrorInvalidValue, and launches nothing, for a
+// model id outside 0-3, a P that is not the model's, a plane set without an
+// instance, or an empty shape.
 extern "C" int gc_lm_system(const float* up_x, const float* up_y, const float* lat_sin,
                             const float* up_conf, const float* lat_conf, const float* cam,
                             const float* grav, const float* M, float* partial, float* G,
-                            float* H, float* cost, int B, int N, int w, int blocks,
-                            int model, int loss_id, float up_scale, float lat_scale,
-                            int mask_bits, int log_focal, void* stream) {
+                            float* H, float* cost, int B, int N, int w, int blocks, int model,
+                            int P, int loss_id, float up_scale, float lat_scale, int mask_bits,
+                            int log_focal, void* stream) {
   // clear a stale error so the return value speaks of this launch only
   cudaGetLastError();
   const int flags = (up_x && up_y ? kUp : 0) | (lat_sin ? kLat : 0) |
                     (up_x && up_conf ? kUpConf : 0) | (lat_sin && lat_conf ? kLatConf : 0);
-  if (!(flags & (kUp | kLat)) || B <= 0 || N <= 0 || w <= 0 || blocks <= 0 ||
-      (model != 0 && model != 1))
+  if (!(flags & (kUp | kLat)) || B <= 0 || N <= 0 || w <= 0 || blocks <= 0 || model < 0 ||
+      model >= kNumModels || P != kNumParams[model])
     return static_cast<int>(cudaErrorInvalidValue);
   LMArgs a{up_x, up_y, lat_sin, up_conf, lat_conf, cam, grav, M, partial, G, H, cost,
            N, w, loss_id, mask_bits, log_focal, up_scale * up_scale, lat_scale * lat_scale};
   auto s = static_cast<cudaStream_t>(stream);
-  if (model == 0)
-    dispatch_flags<0>(a, flags, B, blocks, s);
-  else
-    dispatch_flags<1>(a, flags, B, blocks, s);
+  bool launched = false;
+  switch (model) {
+    case 0: launched = dispatch_flags<0>(a, flags, B, blocks, s); break;
+    case 1: launched = dispatch_flags<1>(a, flags, B, blocks, s); break;
+    case 2: launched = dispatch_flags<2>(a, flags, B, blocks, s); break;
+    default: launched = dispatch_flags<3>(a, flags, B, blocks, s); break;
+  }
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

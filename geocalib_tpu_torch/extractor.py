@@ -40,6 +40,8 @@ class GeoCalib:
 
     weights: a Flax msgpack file of the JAX package, a state_dict, or None
     for the network's own random initialization (seed it with torch.manual_seed).
+    optimizer_options: fields of ``LMConfig`` for every request, for example
+    ``init_mode="heuristic"``.
     """
 
     def __init__(self, weights: Optional[Union[str, Path, Dict[str, Tensor]]] = None,
@@ -64,15 +66,19 @@ class GeoCalib:
                   shared_intrinsics: bool = False) -> Dict[str, Any]:
         """Calibrate one image (H, W, 3) or a same-size batch (B, H, W, 3), RGB in [0, 1].
 
+        camera_model: pinhole | simple_radial | radial | simple_divisional.
         priors: optional {"focal": scalar or (B,) pixels, "gravity": Gravity or (B, 3),
-        "k1": scalar or (B,)}. Returns "camera" (input pixel space), "gravity", the
-        fields resized to the input size, confidences, and the solver's info
-        (costs, stop_at, uncertainties).
+        "k1": scalar or (B,)}. shared_intrinsics: one focal and distortion for the
+        whole batch (needs a batch of two or more images). Returns "camera" (input
+        pixel space), "gravity", the fields resized to the input size, confidences,
+        and the solver's info (costs, stop_at, uncertainties).
         """
         img = torch.as_tensor(np.asarray(image, np.float32))
         if not batched:
             img = img[None]
         B = img.shape[0]
+        if shared_intrinsics and B == 1:
+            raise ValueError("shared_intrinsics needs a batch of images")
         cfg = LMConfig(camera_model=camera_model, shared_intrinsics=shared_intrinsics,
                        **self.optimizer_options)
 

@@ -5,9 +5,8 @@ parameters (size, f, c, k) and a camera-model name; per-model distortion
 math lives in scalar functions of r² (``_DIST_SPECS``), which is what lets
 the LM kernel work on per-pixel scalar planes.
 
-The model tables list all four models of the reference. This port
-implements ``pinhole`` and ``simple_radial``; the other two raise
-NotImplementedError until their slice is ported.
+All four models of the reference are implemented: ``pinhole``,
+``simple_radial``, ``radial`` and ``simple_divisional``.
 """
 
 import dataclasses
@@ -395,15 +394,116 @@ class _SimpleRadial:
         return (-r2,)
 
 
+class _Radial:
+    """s = 1 + k1 r² + k2 r⁴; inverse ≈ 1 - k1 r² + (3k1² - k2) r⁴."""
+
+    num_k = 2
+
+    @staticmethod
+    def scale(k1, k2, r2):
+        return 1.0 + r2 * (k1 + k2 * r2)
+
+    @staticmethod
+    def undistort_scale(k1, k2, r2):
+        return 1.0 + r2 * (-k1 + (3.0 * k1**2 - k2) * r2)
+
+    @staticmethod
+    def phi(k1, k2, r2):
+        return 2.0 * k1 + 4.0 * k2 * r2
+
+    @staticmethod
+    def dphi_dr2(k1, k2, r2):
+        return torch.broadcast_to(4.0 * k2, torch.broadcast_shapes(k2.shape, r2.shape))
+
+    @staticmethod
+    def dphi_dk(k1, k2, r2):
+        return (torch.full_like(r2, 2.0), 4.0 * r2)
+
+    @staticmethod
+    def ds_dk(k1, k2, r2):
+        return (r2, r2**2)
+
+    @staticmethod
+    def dsu_dr2(k1, k2, r2):
+        return -k1 + 2.0 * (3.0 * k1**2 - k2) * r2
+
+    @staticmethod
+    def dsu_dk(k1, k2, r2):
+        return (6.0 * k1 * r2**2 - r2, -(r2**2))
+
+
+class _SimpleDivisional:
+    """Division model: s = (1-√(1-4 k1 r²))/(2 k1 r²); inverse 1/(1+k1 r²).
+
+    Written via the smooth equivalent σ(t) = 2/(1+√(1-4t)) (t = k1 r²), which
+    is finite at t = 0, with closed-form σ', σ''. The square root's argument
+    is clipped at 1e-6 and a zero undistort denominator is replaced by 1e6.
+    """
+
+    num_k = 1
+
+    @staticmethod
+    def _q(k1, r2):
+        return torch.sqrt(torch.clamp(1.0 - 4.0 * k1 * r2, min=1e-6))
+
+    @classmethod
+    def scale(cls, k1, k2, r2):
+        return 2.0 / (1.0 + cls._q(k1, r2))
+
+    @staticmethod
+    def undistort_scale(k1, k2, r2):
+        denom = 1.0 + k1 * r2
+        return 1.0 / torch.where(denom == 0, 1e6, denom)
+
+    @classmethod
+    def _sigma1(cls, k1, r2):
+        """σ'(t) = 4 / (q (1+q)²)."""
+        q = cls._q(k1, r2)
+        return 4.0 / (q * (1.0 + q) ** 2)
+
+    @classmethod
+    def _sigma2(cls, k1, r2):
+        """σ''(t) = 8 (1/(q³(1+q)²) + 2/(q²(1+q)³))."""
+        q = cls._q(k1, r2)
+        return 8.0 * (1.0 / (q**3 * (1.0 + q) ** 2) + 2.0 / (q**2 * (1.0 + q) ** 3))
+
+    @classmethod
+    def phi(cls, k1, k2, r2):
+        return 2.0 * k1 * cls._sigma1(k1, r2)
+
+    @classmethod
+    def dphi_dr2(cls, k1, k2, r2):
+        return 2.0 * k1**2 * cls._sigma2(k1, r2)
+
+    @classmethod
+    def dphi_dk(cls, k1, k2, r2):
+        return (2.0 * cls._sigma1(k1, r2) + 2.0 * k1 * r2 * cls._sigma2(k1, r2),)
+
+    @classmethod
+    def ds_dk(cls, k1, k2, r2):
+        return (cls._sigma1(k1, r2) * r2,)
+
+    @staticmethod
+    def dsu_dr2(k1, k2, r2):
+        denom = (1.0 + k1 * r2) ** 2
+        return -k1 / torch.where(denom == 0, 1e6, denom)
+
+    @staticmethod
+    def dsu_dk(k1, k2, r2):
+        denom = (1.0 + k1 * r2) ** 2
+        return (-r2 / torch.where(denom == 0, 1e6, denom),)
+
+
 _DIST_SPECS = {
     "pinhole": _Pinhole,
     "simple_radial": _SimpleRadial,
+    "radial": _Radial,
+    "simple_divisional": _SimpleDivisional,
 }
 
 
 def _spec(model: str):
-    if model in _DIST_SPECS:
+    try:
         return _DIST_SPECS[model]
-    if model in CAMERA_MODELS:
-        raise NotImplementedError(f"camera model {model!r} is not ported yet")
-    raise ValueError(f"Unknown camera model: {model!r}, expected one of {CAMERA_MODELS}")
+    except KeyError:
+        raise ValueError(f"Unknown camera model: {model!r}, expected one of {CAMERA_MODELS}")

@@ -1,9 +1,12 @@
 """Builds the CUDA sources into one shared library and loads it with ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` file for sm_90a into
-``build/geocalib_tpu_torch/libgctorch.so`` under the repository root. It runs
-at first use, and again whenever a hash of the sources and flags changes. The
-library has a plain C interface, so no PyTorch header is compiled.
+Every ``csrc/*.cu`` file is compiled for sm_90a by an ``nvcc`` process of its
+own, all started together, and one more ``nvcc`` call links the objects into
+``build/geocalib_tpu_torch/libgctorch.so`` under the repository root. The build
+runs at first use, and again whenever a hash of the sources and flags
+changes. The library has a plain C interface, so no PyTorch header is
+compiled. ``-Xptxas -v`` makes the compiler report each kernel's registers and
+spills; the report is kept in ``build_log["ptxas"]``.
 """
 
 import ctypes
@@ -18,22 +21,22 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "geocalib_tpu_torch"
 LIB_NAME = "libgctorch.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # up_x, up_y, lat_sin, up_conf, lat_conf, cam, grav, M, partial, G, H, cost,
-    # B, N, w, blocks, model, loss_id, up_scale, lat_scale, mask_bits, log_focal, stream
-    "gc_lm_system": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _I, _P],
+    # B, N, w, blocks, model, P, loss_id, up_scale, lat_scale, mask_bits, log_focal, stream
+    "gc_lm_system": [_P] * 12 + [_I] * 7 + [_F, _F, _I, _I, _P],
     # dtype, x, bases, coef, bt, gram, partial, B, N, D, R, steps, inv_t, eps, chunk, stream
     "gc_nmf": [_I] + [_P] * 6 + [_I] * 5 + [_F, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
-build_log = {"built": False}  # whether nvcc ran in this process
+build_log = {"built": False, "ptxas": ""}  # whether nvcc ran in this process, its report
 
 
 def _nvcc() -> str:
@@ -69,16 +72,32 @@ def build() -> Path:
     if so.exists() and stamp.exists() and stamp.read_text().strip() == digest:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(sources(), objs))]
+    done = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        done.append((cmd, proc.returncode, out, err))
+    for result in done:
+        _raise_on_failure(*result)
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    _raise_on_failure(cmd, proc.returncode, proc.stdout, proc.stderr)
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, so)
     stamp.write_text(digest)
-    build_log["built"] = True
+    build_log.update(built=True, ptxas="".join(out + err for _, _, out, err in done))
     return so
+
+
+def _raise_on_failure(cmd: Sequence[str], code: int, out: str, err: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}\n{err}")
 
 
 def lib() -> ctypes.CDLL:

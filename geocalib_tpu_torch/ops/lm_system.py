@@ -21,7 +21,7 @@ Tensor = torch.Tensor
 
 OBS_KEYS = ("up_x", "up_y", "lat_sin", "up_conf", "lat_conf")
 LOSS_IDS = {"squared": 0, "huber": 1, "barron": 2}
-MODEL_IDS = {"pinhole": 0, "simple_radial": 1}
+MODEL_IDS = {"pinhole": 0, "simple_radial": 1, "radial": 2, "simple_divisional": 3}
 THREADS = 256
 PIXELS_PER_THREAD = 8
 
@@ -90,8 +90,6 @@ def lm_system(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, 
     if dev.type != "cuda":
         raise ValueError(f"lm_system runs on CPU or CUDA tensors, not {dev}")
     spherical, log_focal = _options(cfg, spherical, log_focal)
-    if camera.model not in MODEL_IDS:
-        raise NotImplementedError(f"the LM kernel has no {camera.model!r} path yet")
     if cfg.loss_fn not in LOSS_IDS:
         raise ValueError(f"unknown loss {cfg.loss_fn!r}")
     unknown = set(obs) - set(OBS_KEYS)
@@ -131,12 +129,14 @@ def launch(obs: Dict[str, Tensor], cam: Tensor, grav: Tensor, M: Tensor, model: 
     code = build.lib().gc_lm_system(
         *(build.ptr(obs.get(k)) for k in OBS_KEYS),
         cam.data_ptr(), grav.data_ptr(), M.data_ptr(), partial.data_ptr(), G.data_ptr(),
-        H.data_ptr(), cost.data_ptr(), B, N, w, blocks, MODEL_IDS[model],
+        H.data_ptr(), cost.data_ptr(), B, N, w, blocks, MODEL_IDS[model], P,
         LOSS_IDS[cfg.loss_fn], cfg.up_loss_fn_scale, cfg.lat_loss_fn_scale, mask_bits,
         int(log_focal), torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "gc_lm_system")
     lm_system.launches += 1
+    lm_system.launches_by_model[model] += 1
     return G, H, cost
 
 
 lm_system.launches = 0
+lm_system.launches_by_model = dict.fromkeys(MODEL_IDS, 0)

@@ -1,9 +1,12 @@
 """Tiny batched linear algebra for the LM solver.
 
-Port of the parts of geocalib_tpu/optim/linalg.py this slice needs: P is a
-small Python int, so the Cholesky solve is unrolled into batched tensor
-arithmetic, with no host round trip and no LAPACK call.
+Port of geocalib_tpu/optim/linalg.py, without its ``cross_sum`` (the sum
+across devices comes with the distributed port): P is a small Python int,
+so the Cholesky solve is unrolled into batched tensor arithmetic, with no
+host round trip and no LAPACK call.
 """
+
+from typing import Tuple
 
 import torch
 
@@ -64,3 +67,32 @@ def damp_hessian(H: Tensor, lamb: Tensor, eps: float = 1e-6) -> Tensor:
     diag = torch.diagonal(H, dim1=-2, dim2=-1)
     damped = torch.clamp(diag * lamb[..., None], min=eps)
     return H + torch.diag_embed(damped)
+
+
+def solve_arrow(D: Tensor, U: Tensor, S: Tensor, g_g: Tensor, g_i: Tensor,
+                eps: float = 1e-12) -> Tuple[Tensor, Tensor]:
+    """Solve the shared-intrinsics arrow system by a Schur complement.
+
+        [ blockdiag(D_b)  U_b ] [ x_g,b ]   [ g_g,b ]
+        [ Σ_b U_bᵀ         S  ] [ x_i   ] = [ g_i   ]
+
+    D (B, 2, 2) are the per-image gravity blocks, U (B, 2, p) the
+    gravity-intrinsics coupling, S (p, p) the summed intrinsics block. With
+    Ŝ = S - Σ_b U_bᵀ D_b⁻¹ U_b (p × p) the system never becomes dense.
+    D_b⁻¹ is the closed-form 2×2 inverse, with |det| < eps replaced by
+    sign(det)·eps + eps. Returns x_g (B, 2) and x_i (p,).
+    """
+    a, d = D[..., 0, 0], D[..., 1, 1]
+    b, c = D[..., 0, 1], D[..., 1, 0]
+    det = a * d - b * c
+    det = torch.where(torch.abs(det) < eps, torch.sign(det) * eps + eps, det)
+    inv = torch.stack([d, -b, -c, a], dim=-1).reshape(D.shape) / det[..., None, None]
+
+    Dinv_U = torch.einsum("bij,bjk->bik", inv, U)  # (B, 2, p)
+    Dinv_g = torch.einsum("bij,bj->bi", inv, g_g)  # (B, 2)
+    S_hat = S - torch.einsum("bji,bjk->ik", U, Dinv_U)
+    rhs = g_i - torch.einsum("bji,bj->i", U, Dinv_g)
+
+    x_i = cholesky_solve_small(S_hat, rhs)
+    x_g = Dinv_g - torch.einsum("bik,k->bi", Dinv_U, x_i)
+    return x_g, x_i

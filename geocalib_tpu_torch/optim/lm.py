@@ -2,19 +2,22 @@
 
 Port of geocalib_tpu/optim/lm.py: a fixed number of iterations with
 per-lane convergence freezing, priors as static parameter masks, the damped
-normal equations solved by an unrolled Cholesky, and the uncertainty from
-the inverse Hessian in (roll, pitch, focal) space. Each iteration's
-normal equations come from one pass of ``ops.lm_system`` (the CUDA kernel on
-the card), and that pass's cost is the "new cost" of the previous iteration,
-so the λ and convergence bookkeeping is deferred by one iteration exactly as
-in the JAX solver.
+normal equations solved by an unrolled Cholesky (or, with shared
+intrinsics, by a Schur complement over the arrow-shaped system), and the
+uncertainty from the inverse Hessian in (roll, pitch, focal) space. Each
+iteration's normal equations come from one pass of ``ops.lm_system`` (the
+CUDA kernel on the card), and that pass's cost is the "new cost" of the
+previous iteration, so the λ and convergence bookkeeping is deferred by one
+iteration exactly as in the JAX solver.
 
-Not ported yet (asking for them raises NotImplementedError): the radial and
-simple_divisional models, shared intrinsics, the heuristic init and the
-backward paths (``grad_mode="ift"``; the kernel has no VJP).
+All four camera models, the trivial and heuristic inits and shared
+intrinsics are ported. Not ported yet (asking for it raises
+NotImplementedError): the backward paths (``grad_mode="ift"``; the kernel
+has no VJP).
 """
 
 import dataclasses
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -27,8 +30,6 @@ from geocalib_tpu_torch.optim import linalg
 from geocalib_tpu_torch.utils.conversions import focal2fov
 
 Tensor = torch.Tensor
-
-PORTED_MODELS = ("pinhole", "simple_radial")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +51,7 @@ class LMConfig:
     loss_fn: str = "huber"
     use_up: bool = True
     use_latitude: bool = True
-    init_mode: str = "trivial"
+    init_mode: str = "trivial"  # "trivial" | "heuristic"
     estimate_gravity: bool = True
     estimate_focal: bool = True
     estimate_dist: bool = True
@@ -60,12 +61,8 @@ class LMConfig:
     def __post_init__(self):
         if self.camera_model not in NUM_DIST_PARAMS:
             raise ValueError(f"Unknown camera model {self.camera_model!r}")
-        if self.camera_model not in PORTED_MODELS:
-            raise NotImplementedError(f"camera model {self.camera_model!r} is not ported yet")
-        if self.shared_intrinsics:
-            raise NotImplementedError("shared_intrinsics is not ported yet")
-        if self.init_mode != "trivial":
-            raise NotImplementedError(f"init_mode {self.init_mode!r} is not ported yet")
+        if self.init_mode not in ("trivial", "heuristic"):
+            raise ValueError(f"Unknown init_mode {self.init_mode!r}")
         if self.grad_mode != "unroll":
             raise NotImplementedError(f"grad_mode {self.grad_mode!r} is not ported yet")
 
@@ -143,6 +140,41 @@ def get_trivial_estimation(data: Dict[str, Tensor], cfg: LMConfig) -> Tuple[Came
     return camera, gravity
 
 
+def get_heuristic_estimation(data: Dict[str, Tensor], cfg: LMConfig
+                             ) -> Tuple[Camera, Gravity]:
+    """Initial estimate from the fields: roll from the centre up vector, pitch from
+    the centre latitude, vFoV from the top-to-bottom latitude span; priors override."""
+    up = data["up_field"]
+    lat = data["latitude_field"]
+    B, h, w = up.shape[0], up.shape[1], up.shape[2]
+    dev = up.device
+    lim = math.radians(45.0)
+
+    up_c = up[:, h // 2, w // 2]  # (B, 2)
+    init_r = torch.clamp(-torch.atan2(up_c[..., 0], -up_c[..., 1]), -lim, lim)
+    init_p = torch.clamp(lat[:, h // 2, w // 2, 0], -lim, lim)
+    init_vfov = torch.clamp(torch.abs(lat[:, 0, w // 2, 0] - lat[:, -1, w // 2, 0]),
+                            math.radians(20.0), math.radians(120.0))
+
+    params = {"width": torch.full((B,), float(w), device=dev),
+              "height": torch.full((B,), float(h), device=dev), "vfov": init_vfov}
+    if "prior_focal" in data:
+        params["f"] = torch.as_tensor(data["prior_focal"], dtype=torch.float32, device=dev)
+        del params["vfov"]
+    if "scales" in data:
+        params["scales"] = data["scales"]
+    if "prior_dist" in data:
+        params["dist"] = data["prior_dist"]
+    camera = Camera.from_dict(params, model=cfg.camera_model)
+
+    if "prior_gravity" in data:
+        pg = data["prior_gravity"]
+        gravity = pg if isinstance(pg, Gravity) else Gravity.from_vec3d(pg)
+    else:
+        gravity = Gravity.from_rp(init_r, init_p)
+    return camera, gravity
+
+
 def resolve_priors(data: Dict[str, Tensor], cfg: LMConfig) -> LMConfig:
     """Turn off the estimate_* flags of every prior given in `data`."""
     return dataclasses.replace(
@@ -168,6 +200,25 @@ def _select(mask: Tensor, a: Tensor, b: Tensor) -> Tensor:
     return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim)), a, b)
 
 
+def _solve_damped(G: Tensor, H: Tensor, lamb: Tensor, cfg: LMConfig) -> Tensor:
+    """Damped normal-equation solve; the arrow solve when the intrinsics are shared.
+
+    With shared intrinsics λ is one scalar lane. The gravity blocks are damped
+    per image; the intrinsics block S is rebuilt from the undamped blocks summed
+    over the batch and damped on that summed diagonal.
+    """
+    if not cfg.shared_intrinsics:
+        return linalg.cholesky_solve_small(linalg.damp_hessian(H, lamb), G)
+    Hd = linalg.damp_hessian(H, lamb.expand(H.shape[:1]))
+    D, U = Hd[:, :2, :2], Hd[:, :2, 2:]
+    S_raw = H[:, 2:, 2:].sum(0)
+    g_i = G[:, 2:].sum(0)
+    diag = torch.diagonal(S_raw, dim1=-2, dim2=-1)
+    S = S_raw + torch.diag(torch.clamp(diag * lamb, min=1e-6))
+    x_g, x_i = linalg.solve_arrow(D, U, S, G[:, :2], g_i)
+    return torch.cat([x_g, x_i.expand((G.shape[0],) + x_i.shape)], dim=-1)
+
+
 def _update_lambda(lamb: Tensor, prev_cost: Tensor, new_cost: Tensor) -> Tensor:
     """×10 on a cost increase, ×0.1 on a decrease, clamped to [1e-6, 1e2]."""
     factor = torch.where(new_cost > prev_cost, 10.0, 0.1)
@@ -180,7 +231,10 @@ def run_lm(data: Dict[str, Tensor], cfg: LMConfig) -> LMResult:
     "prior_focal", "prior_dist" and "scales"."""
     cfg = resolve_priors(data, cfg)
     obs, h, w = flatten_observations(data, cfg)
-    camera0, gravity0 = get_trivial_estimation(data, cfg)
+    if cfg.init_mode == "heuristic" and "up_field" in data and "latitude_field" in data:
+        camera0, gravity0 = get_heuristic_estimation(data, cfg)
+    else:
+        camera0, gravity0 = get_trivial_estimation(data, cfg)
     camera, gravity, info = optimize(obs, camera0, gravity0, h, w, cfg)
     info["initial_vfov"] = camera0.vfov
     return LMResult(camera, gravity, info)
@@ -188,33 +242,41 @@ def run_lm(data: Dict[str, Tensor], cfg: LMConfig) -> LMResult:
 
 def optimize(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, w: int,
              cfg: LMConfig) -> Tuple[Camera, Gravity, Dict[str, Tensor]]:
-    """The LM loop, then the final cost and uncertainty at the optimum."""
+    """The LM loop, then the final cost and uncertainty at the optimum.
+
+    With shared intrinsics, λ, the convergence test and stop_at are one lane
+    for the whole batch, on the batch-mean cost; λ stays at its initial value
+    (the reference freezes it in that mode), and no lane is frozen alone.
+    """
     B = camera.f.shape[0]
     dev = camera.f.device
-    lamb = torch.full((B,), cfg.lambda_, device=dev)
-    prev_cost = torch.zeros((B,), device=dev)
-    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
-    stop_at = torch.full((B,), float(cfg.num_steps), device=dev)
+    shared = cfg.shared_intrinsics
+    L = 1 if shared else B  # lanes of the bookkeeping
+    lamb = torch.full((L,), cfg.lambda_, device=dev)
+    prev_cost = torch.zeros((L,), device=dev)
+    converged = torch.zeros((L,), dtype=torch.bool, device=dev)
+    stop_at = torch.full((L,), float(cfg.num_steps), device=dev)
     initial_cost = torch.zeros((B,), device=dev)
 
     for it in range(cfg.num_steps):
-        G, H, cost = lm_system(obs, camera, gravity, h, w, cfg)
+        G, H, cost_lane = lm_system(obs, camera, gravity, h, w, cfg)
+        cost = cost_lane.mean(0, keepdim=True) if shared else cost_lane
         if it == 0:
-            initial_cost = cost
+            initial_cost = cost_lane
             conv_now = torch.zeros_like(converged)
         else:
             # bookkeeping deferred from the previous iteration: this cost is its "new cost"
-            if not cfg.fix_lambda:
+            if not cfg.fix_lambda and not shared:
                 lamb = torch.where(converged, lamb, _update_lambda(lamb, prev_cost, cost))
             conv_now = torch.abs(cost - prev_cost) <= cfg.atol + cfg.rtol * torch.abs(prev_cost)
         stop_at = torch.where(~converged & conv_now, float(it), stop_at)
         converged = converged | conv_now
 
-        delta = linalg.cholesky_solve_small(linalg.damp_hessian(H, lamb), G)
+        delta = _solve_damped(G, H, lamb, cfg)
         if cfg.early_stop:
             delta = torch.where(converged[:, None], 0.0, delta)
         new_camera, new_gravity = _update_estimate(camera, gravity, delta, cfg)
-        if cfg.early_stop:
+        if cfg.early_stop and not shared:
             new_camera = Camera(*(_select(converged, a, b) for a, b in zip(
                 (camera.size, camera.f, camera.c, camera.k),
                 (new_camera.size, new_camera.f, new_camera.c, new_camera.k))), camera.model)
@@ -224,7 +286,7 @@ def optimize(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, w
     # final cost, and H in (roll, pitch, focal) space for the uncertainty
     _, H_rpf, final_cost = lm_system(obs, camera, gravity, h, w, cfg,
                                      spherical=False, log_focal=False)
-    info = {"initial_cost": initial_cost, "stop_at": stop_at, "final_cost": final_cost}
+    info = {"initial_cost": initial_cost, "stop_at": stop_at.expand(B), "final_cost": final_cost}
     if cfg.with_uncertainty:
         info.update(estimate_uncertainty(camera, H_rpf, cfg))
     return camera, gravity, info

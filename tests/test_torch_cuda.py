@@ -18,12 +18,17 @@ import torch
 
 from geocalib_tpu_torch.geometry.camera import Camera
 from geocalib_tpu_torch.geometry.gravity import Gravity
+from geocalib_tpu_torch.geometry import planar_fields as pf
 from geocalib_tpu_torch.geometry.perspective_fields import get_perspective_field
-from geocalib_tpu_torch.ops.lm_system import OBS_KEYS, lm_system, lm_system_plain
+from geocalib_tpu_torch.ops import build
+from geocalib_tpu_torch.ops.lm_system import (LOSS_IDS, MODEL_IDS, OBS_KEYS, lm_system,
+                                              lm_system_plain)
 from geocalib_tpu_torch.ops.nmf import nmf, nmf_plain, nmf_reconstruct
 from geocalib_tpu_torch.optim.lm import LMConfig
 
 pytestmark = pytest.mark.cuda
+
+MODELS = ["pinhole", "simple_radial", "radial", "simple_divisional"]
 
 
 @pytest.fixture
@@ -36,8 +41,9 @@ def card():
 def _lm_inputs(model, B, h, w, dev, seed=0):
     rng = np.random.default_rng(seed)
     k1 = rng.uniform(-0.2, 0.0, B) if model != "pinhole" else np.zeros(B)
+    k2 = np.random.default_rng(seed + 1).uniform(-0.1, 0.1, B) if model == "radial" else np.zeros(B)
     cam = Camera.from_dict({"height": np.full(B, float(h)), "width": np.full(B, float(w)),
-                            "vfov": rng.uniform(0.6, 1.4, B), "k1": k1}, model=model)
+                            "vfov": rng.uniform(0.6, 1.4, B), "k1": k1, "k2": k2}, model=model)
     grav = Gravity.from_rp(torch.from_numpy(rng.uniform(-0.4, 0.4, B)).float(),
                            torch.from_numpy(rng.uniform(-0.4, 0.4, B)).float())
     up, lat = get_perspective_field(cam, grav, h, w)
@@ -48,7 +54,8 @@ def _lm_inputs(model, B, h, w, dev, seed=0):
            "lat_conf": torch.from_numpy(rng.uniform(0.2, 1, (B, h * w))).float()}
     obs = {k: v.contiguous().to(dev) for k, v in obs.items()}
     cam0 = Camera.from_dict({"height": np.full(B, float(h)), "width": np.full(B, float(w)),
-                             "vfov": np.full(B, 1.0), "k1": k1 * 0.5}, model=model)
+                             "vfov": np.full(B, 1.0), "k1": k1 * 0.5, "k2": k2 * 0.5},
+                            model=model)
     cam0 = Camera.from_data(cam0.data.to(dev), model)
     return obs, cam0, Gravity.from_rp(torch.zeros(B, device=dev), torch.zeros(B, device=dev))
 
@@ -58,7 +65,7 @@ def _close(out, ref):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * b.abs().max().item())
 
 
-@pytest.mark.parametrize("model", ["pinhole", "simple_radial"])
+@pytest.mark.parametrize("model", MODELS)
 @pytest.mark.parametrize("shape", [(3, 48, 40), (2, 61, 37)])  # the second has a ragged tail
 @pytest.mark.parametrize("keys", [OBS_KEYS, ("up_x", "up_y"), ("lat_sin", "lat_conf")])
 def test_lm_kernel_matches_plain(card, model, shape, keys):
@@ -72,6 +79,56 @@ def test_lm_kernel_matches_plain(card, model, shape, keys):
         out = lm_system(obs, cam, grav, h, w, cfg, sph, logf)
         assert lm_system.launches == before + 1
         _close(out, lm_system_plain(obs, cam, grav, h, w, cfg, sph, logf))
+
+
+def test_lm_kernel_divisional_guards(card):
+    """simple_divisional at its guards: lane 0 has a pixel where 1 + k1 r² is exactly 0
+    (u = 1, v = 0, k1 = -1), lanes 1 and 2 pixels where 1 - 4 k1 r² is clipped at 1e-6."""
+    B, h, w = 3, 16, 16
+    obs, _, _ = _lm_inputs("simple_divisional", B, h, w, card, seed=3)
+    cam = Camera.from_data(torch.tensor([[16.0, 16, 4, 4, 8, 8, -1.0, 0],
+                                         [16.0, 16, 4, 4, 8, 8, 0.25, 0],
+                                         [16.0, 16, 6, 6, 8, 8, 0.3, 0]], device=card),
+                           "simple_divisional")
+    grav = Gravity.from_rp(torch.tensor([0.1, -0.2, 0.3], device=card),
+                           torch.tensor([0.2, 0.1, -0.1], device=card))
+    for loss, sph, logf in [("huber", True, True), ("squared", False, False)]:
+        cfg = LMConfig(camera_model="simple_divisional", loss_fn=loss)
+        out = lm_system(obs, cam, grav, h, w, cfg, sph, logf)
+        assert all(bool(torch.isfinite(t).all()) for t in out)
+        _close(out, lm_system_plain(obs, cam, grav, h, w, cfg, sph, logf))
+
+
+def _call_entry(obs, cam, grav, h, w, model_id, P):
+    """gc_lm_system called directly, past the wrapper's checks; returns its cudaError_t."""
+    B, N = cam.f.shape[0], h * w
+    S = P + P * (P + 1) // 2 + 1
+    dev = cam.f.device
+    M = pf.manifold_matrix(grav, True).reshape(B, 6).contiguous()
+    partial = torch.empty((B, 1, S), device=dev)
+    G, H, cost = (torch.full(s, float("nan"), device=dev) for s in ((B, P), (B, P, P), (B,)))
+    code = build.lib().gc_lm_system(
+        *(build.ptr(obs.get(k)) for k in OBS_KEYS), cam.data.contiguous().data_ptr(),
+        grav.vec3d.contiguous().data_ptr(), M.data_ptr(), partial.data_ptr(), G.data_ptr(),
+        H.data_ptr(), cost.data_ptr(), B, N, w, 1, model_id, P, LOSS_IDS["huber"], 1e-2, 1e-2,
+        (1 << P) - 1, 1, torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert torch.isnan(G).all() and torch.isnan(cost).all(), "a refused call wrote its outputs"
+    return code
+
+
+@pytest.mark.parametrize("model_id,P,keys", [
+    (4, 4, OBS_KEYS),                            # model id outside 0-3
+    (-1, 3, OBS_KEYS),
+    (MODEL_IDS["radial"], 4, OBS_KEYS),          # P is not the model's
+    (MODEL_IDS["pinhole"], 3, ("up_x", "up_conf", "lat_sin")),  # no up_y: no instance
+])
+def test_lm_entry_refuses_what_it_has_no_instance_for(card, model_id, P, keys):
+    obs, cam, grav = _lm_inputs("pinhole", 2, 8, 8, card)
+    code = _call_entry({k: obs[k] for k in keys}, cam, grav, 8, 8, model_id, P)
+    assert code == 1  # cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match="gc_lm_system"):
+        build.check(code, "gc_lm_system")
 
 
 def test_lm_kernel_is_deterministic(card):

@@ -29,11 +29,11 @@ from geocalib_tpu_torch.geometry import planar_fields as tpl
 from geocalib_tpu_torch.utils import conversions as tconv
 
 RTOL, ATOL = 1e-5, 1e-6
-MODELS = ["pinhole", "simple_radial"]
+MODELS = ["pinhole", "simple_radial", "radial", "simple_divisional"]
 
 
-def close(t, j, rtol=RTOL, atol=ATOL):
-    np.testing.assert_allclose(np.asarray(t), np.asarray(j), rtol=rtol, atol=atol)
+def close(t, j, rtol=RTOL, atol=ATOL, err_msg=""):
+    np.testing.assert_allclose(np.asarray(t), np.asarray(j), rtol=rtol, atol=atol, err_msg=err_msg)
 
 
 def _params(model, B=3, h=12, w=16, seed=0):
@@ -45,6 +45,8 @@ def _params(model, B=3, h=12, w=16, seed=0):
         "k1": (rng.uniform(-0.3, 0.1, B) if model != "pinhole" else np.zeros(B)).astype(np.float32),
     }
     rp = rng.uniform(-0.5, 0.5, (2, B)).astype(np.float32)
+    if model == "radial":  # k2 != 0 gives the radial model's dphi/dr2 = 4 k2 != 0
+        p["k2"] = rng.uniform(-0.1, 0.1, B).astype(np.float32)
     return p, rp
 
 
@@ -104,17 +106,40 @@ def test_camera(model):
           jc.update_focal(df * 3, as_log=False).data)
     dk = rng.normal(size=(3, 1)).astype(np.float32)
     close(tc.update_dist(torch.from_numpy(dk)).data, jc.update_dist(dk).data)
+    dk = rng.normal(size=(3, tcam.NUM_DIST_PARAMS[model] or 1)).astype(np.float32) * 5.0
+    close(tc.update_dist(torch.from_numpy(dk)).data, jc.update_dist(dk).data)  # DIST_RANGE clamp
     undo = {"scales": np.array([[0.5, 0.6]] * 3, np.float32), "crop_pad": np.array([[-3.0, -5.0]] * 3, np.float32)}
     close(tc.undo_scale_crop({k: torch.from_numpy(v) for k, v in undo.items()}).data,
           jc.undo_scale_crop({k: jnp.asarray(v) for k, v in undo.items()}).data)
 
 
-@pytest.mark.parametrize("model", ["radial", "simple_divisional"])
-def test_unported_models_raise(model):
-    assert model in tcam.CAMERA_MODELS and model in tcam.NUM_DIST_PARAMS
+# (k1, r2) pairs at simple_divisional's guards: 1 - 4 k1 r² at or below the 1e-6
+# clip of the square root's argument, and 1 + k1 r² exactly 0 in the undistort scale
+DIVISIONAL_GUARDS = {
+    "sqrt_clip": [(0.25, 1.0), (0.3, 1.0), (2.5e-1, 0.99999976), (1.0, 4.0), (0.24999976, 1.0)],
+    "zero_denominator": [(-1.0, 1.0), (-0.5, 2.0), (-4.0, 0.25), (-1.0, 0.5)],
+}
+
+
+@pytest.mark.parametrize("guard", sorted(DIVISIONAL_GUARDS))
+def test_divisional_guards_match_jax(guard):
+    """Every simple_divisional spec function at its guards, against the JAX spec."""
     assert tcam.NUM_DIST_PARAMS == jcam.NUM_DIST_PARAMS and tcam.DIST_RANGE == jcam.DIST_RANGE
-    with pytest.raises(NotImplementedError):
-        tcam.Camera.from_data(torch.zeros(1, 8), model=model)
+    k1, r2 = (np.asarray(c, np.float32)[:, None, None] for c in zip(*DIVISIONAL_GUARDS[guard]))
+    k2 = np.zeros_like(k1)
+    if guard == "sqrt_clip":
+        assert np.all(1.0 - 4.0 * k1 * r2 <= 1e-6)
+    else:
+        assert np.any(1.0 + k1 * r2 == 0.0)
+    ts, js = tcam._DIST_SPECS["simple_divisional"], jcam._DIST_SPECS["simple_divisional"]
+    targs = [torch.from_numpy(a) for a in (k1, k2, r2)]
+    for name in ("scale", "undistort_scale", "phi", "dphi_dr2", "dsu_dr2"):
+        t, j = getattr(ts, name)(*targs), getattr(js, name)(k1, k2, r2)
+        assert torch.isfinite(t).all(), name
+        close(t, j, err_msg=name)
+    for name in ("ds_dk", "dphi_dk", "dsu_dk"):
+        for t, j in zip(getattr(ts, name)(*targs), getattr(js, name)(k1, k2, r2)):
+            close(t, j, err_msg=name)
 
 
 @pytest.mark.parametrize("model", MODELS)
@@ -139,7 +164,8 @@ def test_perspective_jacobians(model, spherical, log_focal):
 @pytest.mark.parametrize("model", MODELS)
 def test_jacobians_match_jacfwd(model):
     """Analytic up/latitude Jacobians against torch.func.jacfwd of the forward fields
-    (Euclidean roll/pitch, linear focal, k1), as tests/test_jacobians.py does with jax.jacfwd."""
+    (Euclidean roll/pitch, linear focal, k1, k2), as tests/test_jacobians.py does with
+    jax.jacfwd."""
     _, tc, _, tg = _both(model, B=1, h=6, w=8)
     tc, tg = tc[0], tg[0]
     h, w = 6, 8
@@ -147,15 +173,15 @@ def test_jacobians_match_jacfwd(model):
     def fields(theta):
         g = tgrav.Gravity.from_rp(theta[0], theta[1])
         f = torch.stack([theta[2], theta[2]])
-        k = torch.stack([theta[3], torch.zeros_like(theta[3])])
+        k = torch.stack([theta[3], theta[4]])
         cam = tcam.Camera(tc.size[None], f[None], tc.c[None], k[None], model)
         up = tpf.get_up_field_flat(cam, tgrav.Gravity(g.vec3d[None]), h, w)[0]
         uv1, _ = cam.image2world(cam.pixel_coordinates(h, w))
         sinlat = (cam.pixel_bearing_many(uv1) * g.vec3d).sum(-1)[0]
         return torch.cat([up, sinlat[:, None]], dim=-1)
 
-    theta = torch.stack([tg.roll, tg.pitch, tc.f[1], tc.k[0]])
-    auto = torch.func.jacfwd(fields)(theta)  # (N, 3, 4)
+    theta = torch.stack([tg.roll, tg.pitch, tc.f[1], tc.k[0], tc.k[1]])
+    auto = torch.func.jacfwd(fields)(theta)  # (N, 3, 5)
     cam1 = tcam.Camera(tc.size[None], tc.f[None], tc.c[None], tc.k[None], model)
     g1 = tgrav.Gravity(tg.vec3d[None])
     Ju = tpf.J_up_field(cam1, g1, h, w)[0]

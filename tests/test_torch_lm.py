@@ -23,22 +23,26 @@ from geocalib_tpu.optim import linalg as jlinalg
 from geocalib_tpu.optim import losses as jlosses
 from geocalib_tpu.optim.lm import LMConfig as JLMConfig
 from geocalib_tpu.optim.lm import flatten_observations, run_lm as jrun_lm
+from geocalib_tpu.optim.lm import get_heuristic_estimation as jheuristic
 from geocalib_tpu_torch.geometry.camera import Camera
 from geocalib_tpu_torch.geometry.gravity import Gravity
 from geocalib_tpu_torch.ops.lm_system import lm_system, lm_system_plain
 from geocalib_tpu_torch.optim import linalg, losses
-from geocalib_tpu_torch.optim.lm import LMConfig, run_lm
+from geocalib_tpu_torch.optim.lm import LMConfig, get_heuristic_estimation, run_lm
 
-MODELS = ["pinhole", "simple_radial"]
+MODELS = ["pinhole", "simple_radial", "radial", "simple_divisional"]
 
 
 def _setup(model, B=3, h=16, w=16, conf=True):
-    """The fixture of tests/test_pallas_kernel.py::_setup, as numpy arrays."""
+    """The fixture of tests/test_pallas_kernel.py::_setup, as numpy arrays; the radial
+    model also gets a k2, from a stream of its own so the other fixtures stay as they were."""
     rng = np.random.default_rng(0)
     k1 = rng.uniform(-0.2, 0.0, (B,)) if model != "pinhole" else np.zeros(B)
+    k2 = np.random.default_rng(1).uniform(-0.1, 0.1, B) if model == "radial" else np.zeros(B)
     cam = JCamera.from_dict({"height": jnp.full((B,), float(h)), "width": jnp.full((B,), float(w)),
                              "vfov": jnp.asarray(rng.uniform(0.6, 1.4, (B,)), jnp.float32),
-                             "k1": jnp.asarray(k1, jnp.float32)}, model=model)
+                             "k1": jnp.asarray(k1, jnp.float32),
+                             "k2": jnp.asarray(k2, jnp.float32)}, model=model)
     grav = JGravity.from_rp(jnp.asarray(rng.uniform(-0.4, 0.4, (B,)), jnp.float32),
                             jnp.asarray(rng.uniform(-0.4, 0.4, (B,)), jnp.float32))
     up, lat = get_perspective_field(cam, grav, h, w)
@@ -49,7 +53,8 @@ def _setup(model, B=3, h=16, w=16, conf=True):
         data["latitude_confidence"] = rng.uniform(0.2, 1.0, (B, h, w)).astype(np.float32)
     cam2 = JCamera.from_dict({"height": jnp.full((B,), float(h)), "width": jnp.full((B,), float(w)),
                               "vfov": jnp.full((B,), 1.0, jnp.float32),
-                              "k1": jnp.asarray(k1 * 0.5, jnp.float32)}, model=model)
+                              "k1": jnp.asarray(k1 * 0.5, jnp.float32),
+                              "k2": jnp.asarray(k2 * 0.5, jnp.float32)}, model=model)
     grav2 = JGravity.from_rp(jnp.zeros((B,)), jnp.zeros((B,)))
     return data, cam2, grav2, h, w
 
@@ -91,6 +96,25 @@ def test_linalg(P):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("p", [1, 2, 3])
+def test_solve_arrow(p):
+    """The shared-intrinsics Schur solve, with one gravity block singular (det guard)."""
+    rng = np.random.default_rng(10 + p)
+    B = 4
+    A = rng.normal(size=(B, 2 + p, 2 + p)).astype(np.float32)
+    Hb = A @ A.transpose(0, 2, 1) + 0.5 * np.eye(2 + p, dtype=np.float32)
+    D, U = Hb[:, :2, :2].copy(), Hb[:, :2, 2:].copy()
+    D[0] = [[1.0, 2.0], [2.0, 4.0]]  # det = 0
+    S = Hb[:, 2:, 2:].sum(0) + 10.0 * np.eye(p, dtype=np.float32)
+    g_g = rng.normal(size=(B, 2)).astype(np.float32)
+    g_i = rng.normal(size=(p,)).astype(np.float32)
+    t = linalg.solve_arrow(*(torch.from_numpy(a) for a in (D, U, S, g_g, g_i)))
+    j = jlinalg.solve_arrow(D, U, S, g_g, g_i)
+    for a, b in zip(t, j):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("model", MODELS)
 @pytest.mark.parametrize("conf", [True, False])
 @pytest.mark.parametrize("loss_fn,spherical", [("huber", True), ("squared", False), ("barron", True)])
@@ -117,6 +141,20 @@ def test_plain_system_matches_pallas(model, conf, loss_fn, spherical):
     assert lm_system.launches == before
 
 
+def _check_run(jres, tres, keys=("initial_cost", "final_cost", "roll_uncertainty",
+                                   "pitch_uncertainty", "gravity_uncertainty",
+                                   "focal_uncertainty", "vfov_uncertainty", "initial_vfov")):
+    for attr in ("roll", "pitch"):
+        np.testing.assert_allclose(getattr(tres.gravity, attr).numpy(),
+                                   np.asarray(getattr(jres.gravity, attr)), atol=1e-4)
+    np.testing.assert_allclose(tres.camera.vfov.numpy(), np.asarray(jres.camera.vfov), atol=1e-4)
+    np.testing.assert_allclose(tres.camera.k.numpy(), np.asarray(jres.camera.k), atol=1e-4)
+    np.testing.assert_array_equal(tres.info["stop_at"].numpy(), np.asarray(jres.info["stop_at"]))
+    for key in keys:
+        np.testing.assert_allclose(tres.info[key].numpy(), np.asarray(jres.info[key]),
+                                   rtol=1e-3, atol=1e-6, err_msg=key)
+
+
 def _run_both(model, data, **opts):
     jres = jrun_lm({k: jnp.asarray(v) for k, v in data.items()}, JLMConfig(camera_model=model, **opts))
     tres = run_lm({k: torch.from_numpy(np.asarray(v)) for k, v in data.items()},
@@ -133,21 +171,41 @@ def test_run_lm_matches_jax(model, prior):
     if prior == "gravity":
         data["prior_gravity"] = np.asarray(JGravity.from_rp(jnp.full(4, 0.1), jnp.full(4, -0.2)).vec3d)
     jres, tres = _run_both(model, data)
-    for attr in ("roll", "pitch"):
-        np.testing.assert_allclose(getattr(tres.gravity, attr).numpy(),
-                                   np.asarray(getattr(jres.gravity, attr)), atol=1e-4)
-    np.testing.assert_allclose(tres.camera.vfov.numpy(), np.asarray(jres.camera.vfov), atol=1e-4)
-    np.testing.assert_allclose(tres.camera.k.numpy(), np.asarray(jres.camera.k), atol=1e-4)
-    np.testing.assert_array_equal(tres.info["stop_at"].numpy(), np.asarray(jres.info["stop_at"]))
-    for key in ("initial_cost", "final_cost", "roll_uncertainty", "pitch_uncertainty",
-                "gravity_uncertainty", "focal_uncertainty", "vfov_uncertainty", "initial_vfov"):
-        np.testing.assert_allclose(tres.info[key].numpy(), np.asarray(jres.info[key]),
-                                   rtol=1e-3, atol=1e-6, err_msg=key)
+    _check_run(jres, tres)
 
 
-@pytest.mark.parametrize("opts", [{"camera_model": "radial"}, {"camera_model": "simple_divisional"},
-                                  {"shared_intrinsics": True}, {"init_mode": "heuristic"},
-                                  {"grad_mode": "ift"}])
+@pytest.mark.parametrize("model", ["pinhole", "radial"])
+def test_run_lm_shared_intrinsics_matches_jax(model):
+    """One camera for the batch: one focal in every lane, one stop_at broadcast."""
+    data, _, _, _, _ = _setup(model, B=3, h=24, w=32)
+    jres, tres = _run_both(model, data, shared_intrinsics=True)
+    _check_run(jres, tres)
+    f = tres.camera.f.numpy()
+    assert np.all(f == f[:1]) and np.all(tres.camera.k.numpy() == tres.camera.k.numpy()[:1])
+    assert np.unique(tres.info["stop_at"].numpy()).size == 1
+
+
+@pytest.mark.parametrize("case", ["fields", "priors", "run_lm"])
+def test_heuristic_init_matches_jax(case):
+    """get_heuristic_estimation with and without priors, and run_lm started from it."""
+    data, _, _, _, _ = _setup("simple_radial", B=4, h=24, w=32)
+    if case == "priors":
+        data["prior_focal"] = np.full(4, 30.0, np.float32)
+        data["prior_dist"] = np.tile(np.float32([[-0.1, 0.0]]), (4, 1))
+        data["prior_gravity"] = np.asarray(JGravity.from_rp(jnp.full(4, 0.1), jnp.full(4, -0.2)).vec3d)
+    if case == "run_lm":
+        jres, tres = _run_both("simple_radial", data, init_mode="heuristic")
+        _check_run(jres, tres)
+        return
+    cfg = dict(camera_model="simple_radial", init_mode="heuristic")
+    jcam, jgrav = jheuristic({k: jnp.asarray(v) for k, v in data.items()}, JLMConfig(**cfg))
+    tcam, tgrav = get_heuristic_estimation({k: torch.from_numpy(v) for k, v in data.items()},
+                                           LMConfig(**cfg))
+    np.testing.assert_allclose(tcam.data.numpy(), np.asarray(jcam.data), rtol=1e-6)
+    np.testing.assert_allclose(tgrav.vec3d.numpy(), np.asarray(jgrav.vec3d), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("opts", [{"grad_mode": "ift"}])
 def test_unported_options_raise(opts):
     with pytest.raises(NotImplementedError):
         LMConfig(**opts)
