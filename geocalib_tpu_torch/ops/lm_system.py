@@ -3,7 +3,8 @@
 Port of geocalib_tpu/ops/lm_kernel.py (``lm_system_pallas``). ``lm_system``
 launches the CUDA kernel of ``csrc/lm_system.cu`` for CUDA tensors and calls
 ``lm_system_plain``, the same math in plain PyTorch on (B, N) planes, for CPU
-tensors. Forward only: the kernel has no backward yet.
+tensors. Forward only: the kernel has no backward yet, so on CUDA tensors
+``lm_system`` refuses inputs that require grad while grad is enabled.
 """
 
 import math
@@ -106,6 +107,7 @@ def lm_system(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, 
             raise ValueError(f"{key} must be contiguous")
     if ("up_x" in obs) != ("up_y" in obs):
         raise ValueError("up_x and up_y come together")
+    build.refuse_autograd("lm_system", *obs.values(), camera.data, gravity.vec3d)
 
     cam = camera.data.to(torch.float32).contiguous()
     grav = gravity.vec3d.to(torch.float32).contiguous()

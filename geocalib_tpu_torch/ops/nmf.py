@@ -3,7 +3,9 @@
 Port of geocalib_tpu/ops/nmf_kernel.py (``nmf_pallas``). ``nmf`` launches the
 CUDA kernels of ``csrc/nmf.cu`` for CUDA tensors and calls ``nmf_plain``, the
 same math in plain PyTorch, for CPU tensors. Both return (coef, bt); the
-rank-R reconstruction is one batched product (``nmf_reconstruct``).
+rank-R reconstruction is one batched product (``nmf_reconstruct``). The
+kernels have no backward, so on CUDA tensors ``nmf`` refuses inputs that
+require grad while grad is enabled.
 """
 
 import math
@@ -73,6 +75,7 @@ def nmf(x: Tensor, bases: Tensor, steps: int = 7, inv_t: float = 1.0,
         raise ValueError(f"rank {R} above the kernel's {MAX_RANK}")
     if not (x.is_contiguous() and bases.is_contiguous()):
         raise ValueError("x and bases must be contiguous")
+    build.refuse_autograd("nmf", x, bases)
 
     chunks = math.ceil(N / TOKENS_PER_CHUNK)
     coef = torch.empty((B, N, R), dtype=x.dtype, device=x.device)

@@ -145,7 +145,8 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape", [(2, 256, 64, 16), (3, 200, 120, 64), (2, 700, 512, 64)])
+@pytest.mark.parametrize("shape", [(2, 256, 64, 16), (3, 200, 120, 64), (2, 700, 512, 64),
+                                   (2, 8320, 512, 64)])  # the last is request a's per sample
 def test_nmf_kernel_matches_plain(card, dtype, bound, shape):
     B, N, D, R = shape
     rng = np.random.default_rng(4)
@@ -157,6 +158,44 @@ def test_nmf_kernel_matches_plain(card, dtype, bound, shape):
     ref_coef, ref_bt = nmf_plain(x, bases, 7)
     assert _rel(torch.matmul(coef, bt), torch.matmul(ref_coef, ref_bt)) < bound
     assert _rel(nmf_reconstruct(x, bases, 0), torch.matmul(*nmf_plain(x, bases, 0))) < bound
+
+
+def test_nmf_kernel_is_deterministic(card):
+    """No atomics: two launches give the same bits (ragged N and D, R below 64)."""
+    rng = np.random.default_rng(5)
+    B, N, D, R = 3, 2500, 200, 48
+    x = torch.from_numpy(np.maximum(rng.normal(size=(B, N, D)), 0)).to(card, torch.bfloat16)
+    bases = torch.from_numpy(rng.uniform(size=(B, D, R))).to(card, torch.bfloat16)
+    first = nmf(x, bases, 7)
+    for a, b in zip(first, nmf(x, bases, 7)):
+        assert torch.equal(a, b)
+
+
+def test_kernels_refuse_autograd(card):
+    """The kernels have no backward: under grad, an input that requires grad is refused
+    (not routed to the plain version); under no_grad the same call launches."""
+    obs, cam, grav = _lm_inputs("pinhole", 2, 16, 16, card)
+    cfg = LMConfig()
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(np.maximum(rng.normal(size=(1, 64, 32)), 0)).to(card, torch.bfloat16)
+    bases = torch.from_numpy(rng.uniform(size=(1, 32, 8))).to(card, torch.bfloat16)
+    cam_grad = Camera.from_data(cam.data.clone().requires_grad_(), "pinhole")
+    grav_grad = Gravity(grav.vec3d.clone().requires_grad_())
+    obs_grad = dict(obs, up_x=obs["up_x"].clone().requires_grad_())
+    with torch.enable_grad():
+        for args in [(obs_grad, cam, grav), (obs, cam_grad, grav), (obs, cam, grav_grad)]:
+            with pytest.raises(RuntimeError, match="no backward"):
+                lm_system(*args, 16, 16, cfg)
+        for xs, bs in [(x.clone().requires_grad_(), bases), (x, bases.clone().requires_grad_())]:
+            with pytest.raises(RuntimeError, match="no backward"):
+                nmf(xs, bs, 2)
+        lm_system(obs, cam, grav, 16, 16, cfg)  # nothing requires grad
+    with torch.no_grad():
+        before = (lm_system.launches, nmf.launches)
+        for args in [(obs_grad, cam, grav), (obs, cam_grad, grav), (obs, cam, grav_grad)]:
+            lm_system(*args, 16, 16, cfg)
+        nmf(x.clone().requires_grad_(), bases.clone().requires_grad_(), 2)
+        assert (lm_system.launches, nmf.launches) == (before[0] + 3, before[1] + 1)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -210,3 +210,23 @@ def test_unported_options_raise(opts):
     with pytest.raises(NotImplementedError):
         LMConfig(**opts)
 
+
+
+def test_lm_system_is_differentiable_on_cpu():
+    """The refusal of inputs that require grad is for CUDA tensors only: on CPU tensors
+    the wrapper is the plain version, and a backward through it gives finite gradients."""
+    data, cam, grav, h, w = _setup("simple_radial")
+    cfg = LMConfig(camera_model="simple_radial")
+    obs, _, _ = flatten_observations({k: jnp.asarray(v) for k, v in data.items()},
+                                     JLMConfig(camera_model="simple_radial"))
+    tobs = {k: torch.from_numpy(np.array(v)).requires_grad_()
+            for k, v in obs._asdict().items() if v is not None}
+    tcam, tgrav = _to_torch(cam, grav)
+    cam_data = tcam.data.clone().requires_grad_()
+    tcam = Camera.from_data(cam_data, "simple_radial")
+    with torch.enable_grad():
+        G, H, cost = lm_system(tobs, tcam, tgrav, h, w, cfg)
+        (G.square().sum() + H.square().sum() + cost.sum()).backward()
+    for t in (*tobs.values(), cam_data):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+    assert bool(cam_data.grad.abs().sum() > 0) and bool(tobs["up_x"].grad.abs().sum() > 0)

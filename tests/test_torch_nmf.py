@@ -80,3 +80,15 @@ def test_wrapper_uses_plain_on_cpu():
         torch.testing.assert_close(u, v, rtol=0, atol=0)
     assert nmf.launches == before
 
+
+
+def test_wrapper_is_differentiable_on_cpu():
+    """The refusal of inputs that require grad is for CUDA tensors only: on CPU tensors
+    the wrapper is the plain version, and a backward through it gives finite gradients."""
+    x, bases = _inputs(B=2, N=64, D=16, R=8)
+    x, bases = torch.from_numpy(x).requires_grad_(), torch.from_numpy(bases).requires_grad_()
+    with torch.enable_grad():
+        nmf_reconstruct(x, bases, 3).square().sum().backward()
+    for t in (x, bases):
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert bool(torch.isfinite(t.grad).all()) and bool(t.grad.abs().sum() > 0)
