@@ -16,9 +16,10 @@ Each request's launch counts are set to 0 just before it and read just after,
 and it must have launched both kernels (the LM kernel in its camera model's
 instance). Then it holds each kernel against its plain PyTorch version at the
 serving shapes of requests a, c, d and e, times the NMF kernel and each of
-the LM kernel's four model instances at request a's shape, and serves
-requests a, c, d and e again with the plain versions to compare the results
-end to end.
+the LM kernel's four model instances at request a's shape, checks that two
+NMF launches give the same bits, prints the registers and spills of the
+kernels (and fails if a bf16 NMF stage spills), and serves requests a, c, d
+and e again with the plain versions to compare the results end to end.
 
 Run from the repository root, on a machine with one card:
 
@@ -33,6 +34,7 @@ import contextlib
 import faulthandler
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -321,6 +323,10 @@ def nmf_phase(calib, images: np.ndarray) -> dict:
     log(f"nmf kernel vs plain {tuple(tokens.shape)} {tokens.dtype}: relative Frobenius {err:.3e}")
     check(err <= NMF_TOL, f"NMF kernel deviates by {err:.3e} > {NMF_TOL}")
     check(bool(torch.isfinite(out).all()), "NMF kernel output is not finite")
+    first, second = nmf_ops.nmf(tokens, bases, steps), nmf_ops.nmf(tokens, bases, steps)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"nmf kernel, two launches on the same tokens: coef and bt bitwise equal: {same}")
+    check(same, "NMF kernel is not deterministic")
 
     ms = cuda_ms(lambda: nmf_ops.nmf(tokens, bases, steps), reps=3, per_graph=2)
     plain_ms = cuda_ms(lambda: nmf_ops.nmf_plain(tokens, bases, steps), reps=3, per_graph=2)
@@ -332,24 +338,49 @@ def nmf_phase(calib, images: np.ndarray) -> dict:
     esize = tokens.element_size()
     nbytes = esize * B * (N * D + D * R + N * R + R * D)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    log(f"nmf kernel B={B} N={N} D={D} R={R}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    log(f"nmf kernel B={B} N={N} D={D} R={R}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms")
+    # the float32 instance (FMA loops, not on the serving path) on the same tokens
+    x32, b32 = tokens.float(), bases.float()
+    f32_ms = cuda_ms(lambda: nmf_ops.nmf(x32, b32, steps), reps=3, per_graph=2)
+    log(f"nmf kernel, float32 instance, same shape: {f32_ms:.4f} ms")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": None, "tensor_cores": "mma.sync", "tokens_per_chunk": nmf_ops.TOKENS_PER_CHUNK,
+            "f32_ms": f32_ms}
 
 
-def lm_ptxas() -> dict:
-    """Registers and spills of the LM kernel's all-planes instance of each model,
-    from the build's ptxas report (empty when the library was not built here)."""
+def ptxas_entries(entries: dict) -> dict:
+    """Registers and spills of the kernels whose mangled names contain each given
+    substring, from the build's ptxas report (empty when the library was not built here)."""
     found, entry = {}, None
     for line in build.build_log["ptxas"].splitlines():
         if "Compiling entry function" in line:
-            entry = next((m for m, i in lm_ops.MODEL_IDS.items()
-                          if f"lm_partial_kernelILi{i}ELi15E" in line), None)
+            entry = next((label for label, sub in entries.items() if sub in line), None)
         elif entry and ("spill" in line or "Used" in line):
             found[entry] = (found.get(entry, "") + " " + line.split(":", 1)[-1].strip()).strip()
     return found
+
+
+def lm_ptxas() -> dict:
+    """The LM kernel's all-planes instance of each model."""
+    return ptxas_entries({m: f"lm_partial_kernelILi{i}ELi15E" for m, i in lm_ops.MODEL_IDS.items()})
+
+
+def nmf_ptxas() -> dict:
+    """The NMF kernel's bf16 stage kernels, tensor-core stages first."""
+    return ptxas_entries({"coef (init), tensor cores": "nmf_coef_tc_kernelILb1E",
+                          "coef (update), tensor cores": "nmf_coef_tc_kernelILb0E",
+                          "stats, tensor cores": "nmf_stats_tc_kernel",
+                          "gram, tensor cores": "nmf_gram_tc_kernel",
+                          "norm": "nmf_norm_kernelI13__nv_bfloat16E",
+                          "bases": "nmf_bases_kernelI13__nv_bfloat16E"})
+
+
+def spills(report: str) -> bool:
+    """Whether a kernel's ptxas lines report stack or spill bytes other than 0."""
+    return any(int(n) for n in re.findall(r"(\d+) bytes (?:stack frame|spill stores|spill loads)",
+                                          report))
 
 
 def main() -> int:
@@ -426,6 +457,12 @@ def main() -> int:
     nmf = nmf_phase(calib, images)
     for model, n in sorted(lm_ptxas().items()):
         log(f"lm kernel {model}, all five planes: {n}")
+    nmf_regs = nmf_ptxas()
+    for stage, n in nmf_regs.items():
+        log(f"nmf kernel bf16 stage {stage}: {n}")
+    if build.build_log["built"]:
+        check(len(nmf_regs) == 6, f"ptxas reported {len(nmf_regs)} of the 6 bf16 NMF stages")
+        check(not any(spills(n) for n in nmf_regs.values()), "a bf16 NMF stage spills")
 
     with plain_versions():
         plain = {name: requests[name][0].calibrate(requests[name][1], **requests[name][2])

@@ -19,7 +19,14 @@ Tensor = torch.Tensor
 
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 64
-TOKENS_PER_CHUNK = 512
+# Tokens per chunk of the stats stage's partials (B, chunks, R, D + R) float32.
+# At request a's N = 8320 (32 samples, D = 512), 1024 gives 9 chunks: 42.5 MB
+# of partials a step (80 MB at 512) and 1152 bf16 stats blocks. The chunk
+# sets the order of the coef^T x sums, and the bf16 roundings carry that order
+# to the answers: tools/nmf_order_sensitivity.py shows how far each choice
+# moves calibrate from the plain path (1536 and 2048 time a few percent
+# faster, see tools/nmf_stage_times.py).
+TOKENS_PER_CHUNK = 1024
 
 
 def nmf_plain(x: Tensor, bases: Tensor, steps: int = 7, inv_t: float = 1.0,

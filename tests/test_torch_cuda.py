@@ -160,10 +160,12 @@ def test_nmf_kernel_matches_plain(card, dtype, bound, shape):
     assert _rel(nmf_reconstruct(x, bases, 0), torch.matmul(*nmf_plain(x, bases, 0))) < bound
 
 
-def test_nmf_kernel_is_deterministic(card):
-    """No atomics: two launches give the same bits (ragged N and D, R below 64)."""
+@pytest.mark.parametrize("shape", [(3, 2500, 200, 48),  # ragged N and D, R below 64
+                                   (32, 1000, 512, 64)])  # more blocks than the card holds at once
+def test_nmf_kernel_is_deterministic(card, shape):
+    """No atomics and no block reads what another writes: two launches give the same bits."""
     rng = np.random.default_rng(5)
-    B, N, D, R = 3, 2500, 200, 48
+    B, N, D, R = shape
     x = torch.from_numpy(np.maximum(rng.normal(size=(B, N, D)), 0)).to(card, torch.bfloat16)
     bases = torch.from_numpy(rng.uniform(size=(B, D, R))).to(card, torch.bfloat16)
     first = nmf(x, bases, 7)

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, Flax, msgpack, PIL, cv2 or geocalib_tpu.
 
-Every module of geocalib_tpu_torch/, chip_smoke.py and
-tools/torch_path_witness.py is parsed with ast; each import must name the
+Every module of geocalib_tpu_torch/, chip_smoke.py and the card tools
+(tools/torch_path_witness.py, tools/nmf_stage_times.py,
+tools/nmf_order_sensitivity.py) is parsed with ast; each import must name the
 standard library, torch, numpy, the package itself or chip_smoke. The machine with the card has none of the others. The msgpack
 reader that replaces flax.serialization is held against it here.
 """
@@ -21,7 +22,8 @@ ROOT = Path(__file__).resolve().parents[1]
 ALLOWED = {"torch", "numpy", "geocalib_tpu_torch", "chip_smoke"}
 FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "PIL", "cv2", "geocalib_tpu", "triton"}
 FILES = sorted((ROOT / "geocalib_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_path_witness.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_path_witness.py",
+    ROOT / "tools" / "nmf_stage_times.py", ROOT / "tools" / "nmf_order_sensitivity.py"]
 
 
 def _imports(path: Path):
