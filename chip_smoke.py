@@ -39,6 +39,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -383,6 +384,24 @@ def spills(report: str) -> bool:
                                           report))
 
 
+def smoke_requests(calib, calib_h) -> Tuple[dict, dict]:
+    """Requests a to e, name -> (calibrator, image(s), calibrate options), and the
+    rendered views' (roll, pitch, vfov) in degrees of a, d and e. ``calib_h``
+    serves e and must use the heuristic init."""
+    images, truth = scenes(np.random.default_rng(0), 16, 480, 640)
+    images_d, truth_d = scenes(np.random.default_rng(1), 8, 480, 640, vfov=SHARED_VFOV)
+    images_e, truth_e = scenes(np.random.default_rng(2), 4, 480, 640, k1=DIVISION_K1)
+    requests = {
+        "a": (calib, images, {"batched": True}),
+        "b": (calib, images[0], {}),
+        "c": (calib, images[1], {"camera_model": "simple_radial", "priors": FOCAL_PRIOR}),
+        "d": (calib, images_d, {"camera_model": "radial", "shared_intrinsics": True,
+                                "batched": True}),
+        "e": (calib_h, images_e, {"camera_model": "simple_divisional", "batched": True}),
+    }
+    return requests, {"a": truth, "d": truth_d, "e": truth_e}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -405,18 +424,10 @@ def main() -> int:
     calib_h = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16",
                                           init_mode="heuristic")
 
-    images, truth = scenes(np.random.default_rng(0), 16, 480, 640)
+    requests, truths = smoke_requests(calib, calib_h)
+    images, images_d, images_e = (requests[k][1] for k in "ade")
+    truth, truth_d, truth_e = (truths[k] for k in "ade")
     log(f"rendered views (roll, pitch, vfov in degrees): {json.dumps(np.round(truth, 3).tolist())}")
-    images_d, truth_d = scenes(np.random.default_rng(1), 8, 480, 640, vfov=SHARED_VFOV)
-    images_e, truth_e = scenes(np.random.default_rng(2), 4, 480, 640, k1=DIVISION_K1)
-    requests = {  # name -> (calibrator, image(s), calibrate options)
-        "a": (calib, images, {"batched": True}),
-        "b": (calib, images[0], {}),
-        "c": (calib, images[1], {"camera_model": "simple_radial", "priors": FOCAL_PRIOR}),
-        "d": (calib, images_d, {"camera_model": "radial", "shared_intrinsics": True,
-                                "batched": True}),
-        "e": (calib_h, images_e, {"camera_model": "simple_divisional", "batched": True}),
-    }
     titles = {"a": "a (16 x 480x640, pinhole, bf16)", "b": "b (1 image, pinhole)",
               "c": "c (1 image, simple_radial, focal prior)",
               "d": "d (8 views of one camera, radial, shared intrinsics)",

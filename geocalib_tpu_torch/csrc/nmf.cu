@@ -719,7 +719,8 @@ nmf_stats_tc_kernel(const bf16* x, const bf16* coef, float* partial, int N, int 
       });
 
   // straight from the accumulators: rows wr + g and wr + g + 8, column pairs
-  // 2t, 2t + 1 (8-byte stores where the row stride allows)
+  // 2t, 2t + 1 (8-byte stores where the row stride and the column are even:
+  // coef^T coef's columns start at D, which may be odd)
   float* out = partial + (static_cast<size_t>(b) * gridDim.y + ch) * R * (D + R);
   const bool pairs = (D + R) % 2 == 0;
   auto put = [&](int col, int ncol, const float (&d)[4]) {
@@ -728,7 +729,7 @@ nmf_stats_tc_kernel(const bf16* x, const bf16* coef, float* partial, int N, int 
       const int row = wr + g + 8 * h;
       if (row >= R) continue;
       float* o = out + static_cast<size_t>(row) * (D + R) + col;
-      if (pairs && col + 1 < ncol) {
+      if (pairs && col % 2 == 0 && col + 1 < ncol) {
         *reinterpret_cast<float2*>(o) = make_float2(d[2 * h], d[2 * h + 1]);
       } else {
         if (col < ncol) o[0] = d[2 * h];

@@ -17,8 +17,6 @@ import subprocess
 from pathlib import Path
 from typing import Optional, Sequence
 
-import torch
-
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "geocalib_tpu_torch"
@@ -119,16 +117,6 @@ def check(code: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
-
-
-def refuse_autograd(what: str, *inputs) -> None:
-    """Raise when grad is enabled and an input requires grad: the kernels have
-    no backward, and their outputs would silently carry no gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward yet, so it cannot run on inputs that "
-            f"require grad; call it under torch.no_grad() or torch.inference_mode(), or on "
-            f"CPU tensors, where the plain version is differentiable")
 
 
 def ptr(t) -> Optional[int]:

@@ -15,7 +15,7 @@ import torch
 from geocalib_tpu_torch.geometry import planar_fields as pf
 from geocalib_tpu_torch.geometry.camera import Camera
 from geocalib_tpu_torch.geometry.gravity import Gravity
-from geocalib_tpu_torch.ops import build
+from geocalib_tpu_torch.ops import build, refuse_autograd
 from geocalib_tpu_torch.optim.losses import get_loss_fn, scaled_loss
 
 Tensor = torch.Tensor
@@ -107,7 +107,7 @@ def lm_system(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, 
             raise ValueError(f"{key} must be contiguous")
     if ("up_x" in obs) != ("up_y" in obs):
         raise ValueError("up_x and up_y come together")
-    build.refuse_autograd("lm_system", *obs.values(), camera.data, gravity.vec3d)
+    refuse_autograd("lm_system", *obs.values(), camera.data, gravity.vec3d)
 
     cam = camera.data.to(torch.float32).contiguous()
     grav = gravity.vec3d.to(torch.float32).contiguous()

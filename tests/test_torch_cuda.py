@@ -146,7 +146,9 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(2, 256, 64, 16), (3, 200, 120, 64), (2, 700, 512, 64),
-                                   (2, 8320, 512, 64)])  # the last is request a's per sample
+                                   (2, 8320, 512, 64),  # request a's per sample
+                                   (2, 300, 121, 15),  # D, R odd: element loads, odd columns
+                                   (2, 300, 100, 20)])  # D, R even, not multiples of 8
 def test_nmf_kernel_matches_plain(card, dtype, bound, shape):
     B, N, D, R = shape
     rng = np.random.default_rng(4)
@@ -161,7 +163,8 @@ def test_nmf_kernel_matches_plain(card, dtype, bound, shape):
 
 
 @pytest.mark.parametrize("shape", [(3, 2500, 200, 48),  # ragged N and D, R below 64
-                                   (32, 1000, 512, 64)])  # more blocks than the card holds at once
+                                   (32, 1000, 512, 64),  # more blocks than the card holds at once
+                                   (2, 300, 121, 15)])  # D, R odd: element loads, odd columns
 def test_nmf_kernel_is_deterministic(card, shape):
     """No atomics and no block reads what another writes: two launches give the same bits."""
     rng = np.random.default_rng(5)
@@ -170,6 +173,25 @@ def test_nmf_kernel_is_deterministic(card, shape):
     bases = torch.from_numpy(rng.uniform(size=(B, D, R))).to(card, torch.bfloat16)
     first = nmf(x, bases, 7)
     for a, b in zip(first, nmf(x, bases, 7)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_nmf_kernel_takes_unaligned_tensors(card, dtype, bound):
+    """x a contiguous view one element into its storage (not 16-byte aligned): the
+    kernels load element by element, match the plain version and repeat their bits."""
+    B, N, D, R = 2, 700, 512, 64
+    rng = np.random.default_rng(7)
+    x_np = np.maximum(rng.normal(size=(B, N, D)), 0)
+    storage = torch.zeros(B * N * D + 1, device=card, dtype=dtype)
+    x = storage[1:].view(B, N, D)
+    x.copy_(torch.from_numpy(x_np))
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    bases = torch.from_numpy(rng.uniform(size=(B, D, R))).to(card, dtype)
+    coef, bt = nmf(x, bases, 7)
+    ref_coef, ref_bt = nmf_plain(x.clone(), bases, 7)
+    assert _rel(torch.matmul(coef, bt), torch.matmul(ref_coef, ref_bt)) < bound
+    for a, b in zip((coef, bt), nmf(x, bases, 7)):
         assert torch.equal(a, b)
 
 

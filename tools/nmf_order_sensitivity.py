@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """How far calibrate's answers move when only the NMF's order of summation changes.
 
-Serves requests a, c, d and e of chip_smoke.py (same weights, images, seeds and
-options) on one card through geocalib_tpu_torch, first with the plain PyTorch
+Serves requests a, c, d and e of chip_smoke.py (its weights and its
+``smoke_requests``) on one card through geocalib_tpu_torch, first with the plain PyTorch
 versions of both kernels (the reference of chip_smoke.py's whole-path check),
 then by other routes, and prints for each route and request the largest
 roll/pitch/vFoV deviation from the reference in degrees and whether stop_at
@@ -31,7 +31,6 @@ import json
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -97,16 +96,7 @@ def main() -> int:
     calib = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16")
     calib_h = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16",
                                           init_mode="heuristic")
-    rng = np.random.default_rng
-    images = smoke.scenes(rng(0), 16, 480, 640)[0]
-    images_d = smoke.scenes(rng(1), 8, 480, 640, vfov=smoke.SHARED_VFOV)[0]
-    images_e = smoke.scenes(rng(2), 4, 480, 640, k1=smoke.DIVISION_K1)[0]
-    requests = {"a": (calib, images, {"batched": True}),
-                "c": (calib, images[1], {"camera_model": "simple_radial",
-                                         "priors": smoke.FOCAL_PRIOR}),
-                "d": (calib, images_d, {"camera_model": "radial", "shared_intrinsics": True,
-                                        "batched": True}),
-                "e": (calib_h, images_e, {"camera_model": "simple_divisional", "batched": True})}
+    requests = {k: v for k, v in smoke.smoke_requests(calib, calib_h)[0].items() if k in "acde"}
 
     def serve_all():
         return {k: cal.calibrate(imgs, **kw) for k, (cal, imgs, kw) in requests.items()}

@@ -120,9 +120,8 @@ def main() -> int:
     smoke.log(f"card: {smoke.card_name()}")
     weights = params_from_jax(read_flax_msgpack(smoke.WEIGHTS), "b")
     calib = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16")
-    rng = np.random.default_rng
-    sets = {"flat": flat_scenes(rng(0), 16, 480, 640),
-            "rendered": smoke.scenes(rng(0), 16, 480, 640)[0]}
+    sets = {"flat": flat_scenes(np.random.default_rng(0), 16, 480, 640),
+            "rendered": smoke.smoke_requests(calib, calib)[0]["a"][1]}
     calib.calibrate(sets["flat"], batched=True)  # warm up
     result = {name: witness(calib, name, images) for name, images in sets.items()}
     print(json.dumps(result), flush=True)
