@@ -15,11 +15,18 @@ GeoCalib.calibrate requests at MSCAN-B width on the committed weights
 Each request's launch counts are set to 0 just before it and read just after,
 and it must have launched both kernels (the LM kernel in its camera model's
 instance). Then it holds each kernel against its plain PyTorch version at the
-serving shapes of requests a, c, d and e, times the NMF kernel and each of
-the LM kernel's four model instances at request a's shape, checks that two
-NMF launches give the same bits, prints the registers and spills of the
-kernels (and fails if a bf16 NMF stage spills), and serves requests a, c, d
-and e again with the plain versions to compare the results end to end.
+serving shapes of requests a, c, d and e, traces one LM kernel call with
+torch.profiler (it must be one launch), times the NMF kernel and each of the
+LM kernel's four model instances at request a's shape and at one lane of it,
+checks that two NMF launches give the same bits, prints the registers and
+spills of the kernels (and fails if a bf16 NMF stage spills), and ends with
+the whole-path gate: requests a, c, d and e served again by the kernels and
+by the plain versions, converged (the solver's early stop off, so every lane
+runs all 30 iterations: roll, pitch and vFoV within 0.05 degrees in every
+lane) and serving (early stop on, as users run it: lanes that stop at the
+same iteration within 0.05 degrees of roll and pitch and within the larger of
+0.05 degrees and 1% of the plain path's vFoV uncertainty; lanes that stop
+apart must be one iteration apart, and are named).
 
 Run from the repository root, on a machine with one card:
 
@@ -31,6 +38,7 @@ repository. Every line is flushed as it is printed; the last line is
 """
 
 import contextlib
+import copy
 import faulthandler
 import json
 import math
@@ -51,10 +59,9 @@ from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
 from geocalib_tpu_torch.ops import build, lm_system as lm_ops, nmf as nmf_ops
 from geocalib_tpu_torch.optim import lm as lm_solver
 from geocalib_tpu_torch.geometry.camera import Camera
+from geocalib_tpu_torch.geometry.gravity import Gravity
 from geocalib_tpu_torch.optim.lm import (LMConfig, flatten_observations, get_heuristic_estimation,
                                          get_trivial_estimation, resolve_priors)
-
-faulthandler.dump_traceback_later(600, exit=True)  # a hung kernel becomes a traceback
 
 ROOT = Path(__file__).resolve().parent
 WEIGHTS = ROOT / "weights" / "geocalib_synth_r05.msgpack"
@@ -63,10 +70,11 @@ WEIGHTS = ROOT / "weights" / "geocalib_synth_r05.msgpack"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
-# Float operations per pixel of csrc/lm_system.cu with all five planes and the
-# huber loss, counted by hand from the source: an FMA as two, a sqrt, division,
-# negation, max or compare as one, a subexpression the model's functions share
-# (q, sigma', sigma'' of the divisional model) once.
+# Float operations per pixel of the LM system with all five planes and the huber
+# loss, counted by hand from its formulas (IEEE divisions and square roots, the
+# parameter mask per pixel): an FMA as two, a sqrt, division, negation, max or
+# compare as one, a subexpression the model's functions share (q, sigma', sigma''
+# of the divisional model) once.
 LM_FLOPS_PER_PIXEL = {"pinhole": 237, "simple_radial": 363, "radial": 440,
                       "simple_divisional": 395}
 # The distortion of the camera each LM instance is timed with, at request a's shape.
@@ -76,6 +84,12 @@ LM_TIMING_K = {"pinhole": (0.0, 0.0), "simple_radial": (-0.1, 0.0), "radial": (-
 LM_TOL = 1e-4    # f32 relative deviation of G, H and cost: sums taken in another order
 NMF_TOL = 2e-2   # relative Frobenius error of the bf16 reconstruction, 7 steps
 ANGLE_TOL = 0.05  # degrees, whole path with kernels against the plain versions
+GATE_REQUESTS = ("a", "c", "d", "e")  # served by both routes for the whole-path gate
+# Serving comparison only: a lane's vFoV bound is max(ANGLE_TOL, this share of the plain
+# path's vFoV uncertainty); where the early stop freezes a lane in a flat valley of the cost,
+# a float64-summed plain NMF alone moves vFoV by more than ANGLE_TOL (PERF.md)
+SERVING_VFOV_SHARE = 0.01
+WATCHDOG_S = 600  # a hung kernel becomes a traceback after this many seconds
 ROLL_TOL = 3.0    # degrees, request a's roll against the rendered views (r05 weights)
 FOCAL_PRIOR = {"focal": 500.0}  # request c's prior, in input pixels
 SHARED_VFOV = 0.9  # radians, request d's one camera
@@ -226,6 +240,74 @@ def rel_dev(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
 
 
+def without_early_stop(calib):
+    """The same calibrator (same network, same options) with the solver's early stop
+    off: every lane runs the fixed number of iterations, so the stop test, which
+    sits at the float32 ulp, drops out of a comparison."""
+    out = copy.copy(calib)
+    out.optimizer_options = {**calib.optimizer_options, "early_stop": False}
+    return out
+
+
+def gate_serve(requests: dict) -> dict:
+    """Requests a, c, d and e by the present routing, converged (early stop off) and
+    serving (early stop on, as users run it): mode -> request -> output."""
+    return {mode: {k: (cal if early_stop else without_early_stop(cal)).calibrate(imgs, **kw)
+                   for k, (cal, imgs, kw) in requests.items() if k in GATE_REQUESTS}
+            for mode, early_stop in (("converged", False), ("serving", True))}
+
+
+def gate_verdict(route: str, outs: dict, refs: dict,
+                 serving_share: float = SERVING_VFOV_SHARE) -> dict:
+    """The whole-path gate: `route`'s outputs of gate_serve against the plain path's.
+
+    Converged (the gate proper): roll, pitch and vFoV within ANGLE_TOL in every
+    lane. Serving: roll and pitch within ANGLE_TOL and vFoV within max(ANGLE_TOL,
+    serving_share x the plain path's vFoV uncertainty) in every lane whose stop_at
+    equals the plain path's; a lane whose stop_at differs must differ by exactly
+    one iteration, and such lanes are counted and named. Logs each lane; returns
+    ok, the failures, the lanes that stop apart and the largest deviations per
+    mode and request.
+    """
+    failures, apart, worst = [], [], {}
+    for mode in ("converged", "serving"):
+        worst[mode] = {}
+        for k, out in outs[mode].items():
+            ref = refs[mode][k]
+            dev = torch.stack([out["gravity"].roll - ref["gravity"].roll,
+                               out["gravity"].pitch - ref["gravity"].pitch,
+                               out["camera"].vfov - ref["camera"].vfov], -1)
+            dev = torch.rad2deg(dev.abs()).reshape(-1, 3).cpu().numpy()
+            sigma = torch.rad2deg(ref["vfov_uncertainty"]).reshape(-1).cpu().numpy()
+            stop = out["stop_at"].reshape(-1).cpu().numpy()
+            stop_ref = ref["stop_at"].reshape(-1).cpu().numpy()
+            share = serving_share if mode == "serving" else 0.0
+            bound = np.stack([np.full_like(sigma, ANGLE_TOL), np.full_like(sigma, ANGLE_TOL),
+                              np.maximum(ANGLE_TOL, share * sigma)], -1)
+            judged = np.ones_like(stop, bool) if mode == "converged" else stop == stop_ref
+            for lane in np.nonzero(((dev > bound).any(-1)) & judged)[0]:
+                failures.append(f"{mode} {k}[{lane}]: roll/pitch/vfov {dev[lane].round(5).tolist()} "
+                                f"deg against {bound[lane].round(5).tolist()}")
+            if mode == "serving":
+                for lane in np.nonzero(~judged)[0]:
+                    apart.append(f"{k}[{lane}] {int(stop[lane])}/{int(stop_ref[lane])}")
+                    if abs(stop[lane] - stop_ref[lane]) != 1:
+                        failures.append(f"serving {k}[{lane}]: stop_at {int(stop[lane])} against "
+                                        f"{int(stop_ref[lane])}, more than one iteration apart")
+            worst[mode][k] = dev.max(0).tolist()
+            fmt = lambda a: np.array2string(a, precision=5, separator=",", max_line_width=10**4)
+            log(f"gate {mode}, {route} vs plain, request {k}: max roll/pitch/vfov "
+                f"{fmt(dev.max(0))} deg; per lane roll {fmt(dev[:, 0])} pitch {fmt(dev[:, 1])} "
+                f"vfov {fmt(dev[:, 2])}; vfov bound {fmt(bound[:, 2])}; plain vfov sigma "
+                f"{fmt(sigma)} deg; stop_at {stop.astype(int).tolist()} against "
+                f"{stop_ref.astype(int).tolist()}")
+    route = f"{route} (serving vfov bound max({ANGLE_TOL}, {serving_share} sigma))"
+    log(f"gate serving, {route}: {len(apart)} lanes stop one iteration apart from the plain path"
+        f"{': ' + ', '.join(apart) if apart else ''}")
+    log(f"gate, {route}: {'passed' if not failures else 'FAILED: ' + '; '.join(failures)}")
+    return {"ok": not failures, "failures": failures, "stop_apart": apart, "max_dev_deg": worst}
+
+
 def request_system(calib, images: np.ndarray, camera_model: str, priors: dict, **options):
     """What calibrate hands the LM solver for one request: the fields with the
     priors, the planes, the initial estimate and the config."""
@@ -261,7 +343,7 @@ def lm_compare(label: str, obs, camera, gravity, h: int, w: int, cfg) -> float:
 
 
 def lm_timing(obs, camera, gravity, w: int, model: str) -> dict:
-    """Kernel and plain times of one model instance on request a's planes, and its bound."""
+    """Kernel and plain times of one model instance on the given planes, and its bound."""
     B, N = obs["up_x"].shape
     k = torch.tensor(LM_TIMING_K[model], device=camera.f.device).expand(B, 2)
     camera = Camera(camera.size, camera.f, camera.c, k, model)
@@ -276,16 +358,44 @@ def lm_timing(obs, camera, gravity, w: int, model: str) -> dict:
               + grav.numel() + M.numel()) * 4 + (B * (P + P * P + 1)) * 4
     flops = LM_FLOPS_PER_PIXEL[model] * B * N
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    log(f"lm kernel {model} B={B} N={N}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP -> {t_ops:.4f} ms")
+    log(f"lm kernel {model} B={B} N={N}: {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s), plain "
+        f"{plain_ms:.4f} ms, {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP "
+        f"-> {t_ops:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels one fn() call runs, from a torch.profiler trace."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def launch_latency() -> dict:
+    """Milliseconds per launch of a one-element PyTorch kernel: its device time between
+    launches replayed from a CUDA graph, and eager launches timed by CUDA events."""
+    x = torch.zeros(1, device="cuda")
+    graph_ms = cuda_ms(lambda: x.add_(1.0), reps=20, per_graph=50)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(200):
+        x.add_(1.0)
+    end.record()
+    torch.cuda.synchronize()
+    return {"graph_ms": graph_ms, "eager_ms": start.elapsed_time(end) / 200}
 
 
 def lm_phase(calib, calib_h, images: np.ndarray, images_d: np.ndarray,
              images_e: np.ndarray) -> dict:
     """The LM kernel against lm_system_plain on the systems of requests a, c, d and e,
-    then each model instance timed at request a's shape."""
+    one call traced as one kernel launch, then each model instance timed at request a's
+    shape and at one lane of it (requests b and c)."""
     max_abs = lm_compare("request c, simple_radial",
                          *request_system(calib, images[1:2], "simple_radial", FOCAL_PRIOR)[1:])
     for label, cal, imgs, model, opts in [
@@ -303,9 +413,32 @@ def lm_phase(calib, calib_h, images: np.ndarray, images_d: np.ndarray,
 
     _, obs, camera, gravity, h, w, cfg = request_system(calib, images, "pinhole", {})
     max_abs = max(max_abs, lm_compare("request a, pinhole", obs, camera, gravity, h, w, cfg))
-    per_model = {model: lm_timing(obs, camera, gravity, w, model) for model in lm_ops.MODEL_IDS}
+    config = lm_ops.kernel_config(w)
+    B = camera.f.shape[0]
+    cam, grav = camera.data.contiguous(), gravity.vec3d.contiguous()
+    M = pf.manifold_matrix(gravity, True).reshape(B, 6).contiguous()
+    traced = device_kernels(lambda: lm_ops.launch(obs, cam, grav, M, "pinhole", w, cfg, True))
+    log(f"lm kernel, one call traced by torch.profiler: {len(traced)} device kernel(s) {traced}; "
+        f"{config['cluster']} blocks of {config['threads']} threads per lane, one cluster; the "
+        f"card holds {config['active_clusters']} such clusters (lanes) at once")
+    check(len(traced) == 1 and "lm_system_kernel" in traced[0],
+          f"one lm_system call ran {traced}, not one launch of the LM kernel")
+    wrapper = device_kernels(lambda: lm_ops.lm_system(obs, camera, gravity, h, w, cfg))
+    log(f"lm_system wrapper, one call: {len(wrapper)} device kernels (the kernel and the "
+        f"wrapper's host-side ops): {wrapper}")
+
+    one = ({k: v[:1].contiguous() for k, v in obs.items()},
+           Camera.from_data(camera.data[:1], "pinhole"), Gravity(gravity.vec3d[:1]))
+    per_model = {}
+    for model in lm_ops.MODEL_IDS:
+        per_model[model] = lm_timing(obs, camera, gravity, w, model)
+        b1 = lm_timing(*one, w, model)
+        per_model[model].update({f"b1_{k}": v for k, v in b1.items()})
+    latency = launch_latency()
+    log(f"launch latency, one-element kernel: {latency['graph_ms']:.4f} ms a launch in a CUDA "
+        f"graph, {latency['eager_ms']:.4f} ms eager")
     return {"max_abs_err": max_abs, **per_model["pinhole"], "library_ms": None,
-            "per_model": per_model}
+            "per_model": per_model, **config, "launch_latency_ms": latency}
 
 
 def nmf_phase(calib, images: np.ndarray) -> dict:
@@ -344,11 +477,13 @@ def nmf_phase(calib, images: np.ndarray) -> dict:
     # the float32 instance (FMA loops, not on the serving path) on the same tokens
     x32, b32 = tokens.float(), bases.float()
     f32_ms = cuda_ms(lambda: nmf_ops.nmf(x32, b32, steps), reps=3, per_graph=2)
-    log(f"nmf kernel, float32 instance, same shape: {f32_ms:.4f} ms")
+    f32_bound_ms = max(4 / esize * t_bytes, flops / F32_FLOPS * 1e3)
+    log(f"nmf kernel, float32 instance, same shape: {f32_ms:.4f} ms, bound {f32_bound_ms:.4f} ms "
+        f"(operations at {F32_FLOPS / 1e12:.0f} TFLOP/s)")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "tensor_cores": "mma.sync", "tokens_per_chunk": nmf_ops.TOKENS_PER_CHUNK,
-            "f32_ms": f32_ms}
+            "f32_ms": f32_ms, "f32_bound_ms": f32_bound_ms}
 
 
 def ptxas_entries(entries: dict) -> dict:
@@ -365,7 +500,15 @@ def ptxas_entries(entries: dict) -> dict:
 
 def lm_ptxas() -> dict:
     """The LM kernel's all-planes instance of each model."""
-    return ptxas_entries({m: f"lm_partial_kernelILi{i}ELi15E" for m, i in lm_ops.MODEL_IDS.items()})
+    return ptxas_entries({m: f"lm_system_kernelILi{i}ELi15E" for m, i in lm_ops.MODEL_IDS.items()})
+
+
+def resident_blocks(report: str, threads: int) -> int:
+    """Blocks of `threads` threads one SM holds at the register count in a ptxas report
+    (registers are allocated per warp in units of 256)."""
+    regs = int(re.search(r"Used (\d+) registers", report).group(1))
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(65536 // (per_warp * (threads // 32)), 2048 // threads)
 
 
 def nmf_ptxas() -> dict:
@@ -407,6 +550,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this check runs only on the card", file=sys.stderr)
         return 1
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)  # a hung kernel becomes a traceback
     card = card_name()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"card: {card}")
@@ -466,8 +610,14 @@ def main() -> int:
 
     lm = lm_phase(calib, calib_h, images, images_d, images_e)
     nmf = nmf_phase(calib, images)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for model, n in sorted(lm_ptxas().items()):
-        log(f"lm kernel {model}, all five planes: {n}")
+        per_sm = resident_blocks(n, lm["threads"])
+        blocks = lm["cluster"] * 16
+        log(f"lm kernel {model}, all five planes: {n}; by its registers {per_sm} block(s) per SM, "
+            f"so request a's {blocks} blocks would fill {blocks / (per_sm * sms):.3f} of one wave "
+            f"of {sms} SMs")
+        lm["per_model"][model]["registers"] = n
     nmf_regs = nmf_ptxas()
     for stage, n in nmf_regs.items():
         log(f"nmf kernel bf16 stage {stage}: {n}")
@@ -475,20 +625,11 @@ def main() -> int:
         check(len(nmf_regs) == 6, f"ptxas reported {len(nmf_regs)} of the 6 bf16 NMF stages")
         check(not any(spills(n) for n in nmf_regs.values()), "a bf16 NMF stage spills")
 
+    outs_gate = gate_serve(requests)
     with plain_versions():
-        plain = {name: requests[name][0].calibrate(requests[name][1], **requests[name][2])
-                 for name in ("a", "c", "d", "e")}
-    for req in ("a", "c", "d", "e"):
-        out = outs[req]
-        for name, t, p in [("roll", out["gravity"].roll, plain[req]["gravity"].roll),
-                           ("pitch", out["gravity"].pitch, plain[req]["gravity"].pitch),
-                           ("vfov", out["camera"].vfov, plain[req]["camera"].vfov)]:
-            dev = float(torch.rad2deg((t - p).abs()).max())
-            log(f"request {req}, kernels vs plain versions: {name} max deviation {dev:.5f} deg")
-            check(dev <= ANGLE_TOL, f"request {req}: {name} deviates by {dev} deg > {ANGLE_TOL}")
-        same_stop = bool(torch.equal(out["stop_at"], plain[req]["stop_at"]))
-        log(f"request {req}, kernels vs plain versions: stop_at equal in every lane: {same_stop}")
-        check(same_stop, f"request {req}: stop_at differs from the plain versions")
+        refs_gate = gate_serve(requests)
+    gate = gate_verdict("kernels", outs_gate, refs_gate)
+    check(gate["ok"], f"whole-path gate: {gate['failures']}")
 
     by_model = {m: sum(c["lm_system_by_model"].get(m, 0) for c in counts.values())
                 for m in lm_ops.MODEL_IDS}

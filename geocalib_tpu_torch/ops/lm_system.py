@@ -1,13 +1,14 @@
 """LM normal equations G, H and the mean cost in one pass over the pixels.
 
 Port of geocalib_tpu/ops/lm_kernel.py (``lm_system_pallas``). ``lm_system``
-launches the CUDA kernel of ``csrc/lm_system.cu`` for CUDA tensors and calls
+launches the CUDA kernel of ``csrc/lm_system.cu`` (one launch per call, one
+thread-block cluster per lane, no scratch tensor) for CUDA tensors and calls
 ``lm_system_plain``, the same math in plain PyTorch on (B, N) planes, for CPU
 tensors. Forward only: the kernel has no backward yet, so on CUDA tensors
 ``lm_system`` refuses inputs that require grad while grad is enabled.
 """
 
-import math
+import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -23,8 +24,6 @@ Tensor = torch.Tensor
 OBS_KEYS = ("up_x", "up_y", "lat_sin", "up_conf", "lat_conf")
 LOSS_IDS = {"squared": 0, "huber": 1, "barron": 2}
 MODEL_IDS = {"pinhole": 0, "simple_radial": 1, "radial": 2, "simple_divisional": 3}
-THREADS = 256
-PIXELS_PER_THREAD = 8
 
 
 def _options(cfg, spherical: Optional[bool], log_focal: Optional[bool]):
@@ -121,23 +120,29 @@ def launch(obs: Dict[str, Tensor], cam: Tensor, grav: Tensor, M: Tensor, model: 
     B, N = next(iter(obs.values())).shape
     dev = cam.device
     P = cfg.num_params
-    S = P + P * (P + 1) // 2 + 1
-    blocks = max(1, min(1024, math.ceil(N / (THREADS * PIXELS_PER_THREAD))))
-    partial = torch.empty((B, blocks, S), dtype=torch.float32, device=dev)
     G = torch.empty((B, P), dtype=torch.float32, device=dev)
     H = torch.empty((B, P, P), dtype=torch.float32, device=dev)
     cost = torch.empty((B,), dtype=torch.float32, device=dev)
     mask_bits = sum(1 << p for p, m in enumerate(cfg.param_mask) if m)
     code = build.lib().gc_lm_system(
         *(build.ptr(obs.get(k)) for k in OBS_KEYS),
-        cam.data_ptr(), grav.data_ptr(), M.data_ptr(), partial.data_ptr(), G.data_ptr(),
-        H.data_ptr(), cost.data_ptr(), B, N, w, blocks, MODEL_IDS[model], P,
+        cam.data_ptr(), grav.data_ptr(), M.data_ptr(), G.data_ptr(), H.data_ptr(),
+        cost.data_ptr(), B, N, w, MODEL_IDS[model], P,
         LOSS_IDS[cfg.loss_fn], cfg.up_loss_fn_scale, cfg.lat_loss_fn_scale, mask_bits,
         int(log_focal), torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "gc_lm_system")
     lm_system.launches += 1
     lm_system.launches_by_model[model] += 1
     return G, H, cost
+
+
+def kernel_config(w: int) -> Dict[str, int]:
+    """The built kernel's threads per block, blocks per lane (one cluster), and how many
+    clusters (lanes) the card holds at once at w columns."""
+    threads, cluster, active = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    build.check(build.lib().gc_lm_config(ctypes.byref(threads), ctypes.byref(cluster),
+                                         ctypes.byref(active), w), "gc_lm_config")
+    return {"threads": threads.value, "cluster": cluster.value, "active_clusters": active.value}
 
 
 lm_system.launches = 0

@@ -66,7 +66,8 @@ def _close(out, ref):
 
 
 @pytest.mark.parametrize("model", MODELS)
-@pytest.mark.parametrize("shape", [(3, 48, 40), (2, 61, 37)])  # the second has a ragged tail
+# the second has a ragged tail; the third is wider than the kernel's column table (4096)
+@pytest.mark.parametrize("shape", [(3, 48, 40), (2, 61, 37), (2, 3, 4500)])
 @pytest.mark.parametrize("keys", [OBS_KEYS, ("up_x", "up_y"), ("lat_sin", "lat_conf")])
 def test_lm_kernel_matches_plain(card, model, shape, keys):
     B, h, w = shape
@@ -102,16 +103,14 @@ def test_lm_kernel_divisional_guards(card):
 def _call_entry(obs, cam, grav, h, w, model_id, P):
     """gc_lm_system called directly, past the wrapper's checks; returns its cudaError_t."""
     B, N = cam.f.shape[0], h * w
-    S = P + P * (P + 1) // 2 + 1
     dev = cam.f.device
     M = pf.manifold_matrix(grav, True).reshape(B, 6).contiguous()
-    partial = torch.empty((B, 1, S), device=dev)
     G, H, cost = (torch.full(s, float("nan"), device=dev) for s in ((B, P), (B, P, P), (B,)))
     code = build.lib().gc_lm_system(
         *(build.ptr(obs.get(k)) for k in OBS_KEYS), cam.data.contiguous().data_ptr(),
-        grav.vec3d.contiguous().data_ptr(), M.data_ptr(), partial.data_ptr(), G.data_ptr(),
-        H.data_ptr(), cost.data_ptr(), B, N, w, 1, model_id, P, LOSS_IDS["huber"], 1e-2, 1e-2,
-        (1 << P) - 1, 1, torch.cuda.current_stream(dev).cuda_stream)
+        grav.vec3d.contiguous().data_ptr(), M.data_ptr(), G.data_ptr(), H.data_ptr(),
+        cost.data_ptr(), B, N, w, model_id, P, LOSS_IDS["huber"], 1e-2, 1e-2, (1 << P) - 1, 1,
+        torch.cuda.current_stream(dev).cuda_stream)
     torch.cuda.synchronize()
     assert torch.isnan(G).all() and torch.isnan(cost).all(), "a refused call wrote its outputs"
     return code
@@ -136,6 +135,55 @@ def test_lm_kernel_is_deterministic(card):
     cfg = LMConfig(camera_model="simple_radial")
     first = lm_system(obs, cam, grav, 160, 200, cfg)
     for a, b in zip(first, lm_system(obs, cam, grav, 160, 200, cfg)):
+        assert torch.equal(a, b)
+
+
+def _lane(cam, grav, lanes):
+    return Camera.from_data(cam.data[lanes], cam.model), Gravity(grav.vec3d[lanes])
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_lm_kernel_is_batch_invariant(card, model):
+    """A lane's sums depend on N alone: lane 0 of a 16-lane launch gives the same bits
+    as a launch on lane 0's planes alone (request a's width and height)."""
+    B, h, w = 16, 320, 416
+    obs, cam, grav = _lm_inputs(model, B, h, w, card, seed=8)
+    cfg = LMConfig(camera_model=model)
+    batch = lm_system(obs, cam, grav, h, w, cfg)
+    alone = lm_system({k: v[:1].contiguous() for k, v in obs.items()}, *_lane(cam, grav, [0]), h,
+                      w, cfg)
+    for a, b in zip(batch, alone):
+        assert torch.equal(a[:1], b)
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("B", [1, 40])  # one lane; more lanes than the card holds at once
+def test_lm_kernel_batch_sizes(card, model, B):
+    h, w = 96, 128
+    obs, cam, grav = _lm_inputs(model, B, h, w, card, seed=9)
+    for loss, sph, logf in [("huber", True, True), ("squared", False, False)]:
+        cfg = LMConfig(camera_model=model, loss_fn=loss)
+        _close(lm_system(obs, cam, grav, h, w, cfg, sph, logf),
+               lm_system_plain(obs, cam, grav, h, w, cfg, sph, logf))
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("shape", [(3, 64, 80), (2, 61, 37)])  # N % 4 == 0, N % 4 == 1
+def test_lm_kernel_takes_unaligned_planes(card, model, shape):
+    """Planes that are contiguous views one element into their storage (not 16-byte
+    aligned): element loads, the plain version's sums, and the same bits twice."""
+    B, h, w = shape
+    obs, cam, grav = _lm_inputs(model, B, h, w, card, seed=10)
+    moved = {}
+    for k, v in obs.items():
+        storage = torch.zeros(B * h * w + 1, device=card)
+        moved[k] = storage[1:].view(B, h * w)
+        moved[k].copy_(v)
+        assert moved[k].is_contiguous() and moved[k].data_ptr() % 16 != 0
+    cfg = LMConfig(camera_model=model)
+    out = lm_system(moved, cam, grav, h, w, cfg)
+    _close(out, lm_system_plain(obs, cam, grav, h, w, cfg))
+    for a, b in zip(out, lm_system(moved, cam, grav, h, w, cfg)):
         assert torch.equal(a, b)
 
 

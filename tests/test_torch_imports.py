@@ -2,7 +2,7 @@
 
 Every module of geocalib_tpu_torch/, chip_smoke.py and the card tools
 (tools/torch_path_witness.py, tools/nmf_stage_times.py,
-tools/nmf_order_sensitivity.py) is parsed with ast; each import must name the
+tools/nmf_order_sensitivity.py, tools/lm_kernel_sweep.py) is parsed with ast; each import must name the
 standard library, torch, numpy, the package itself or chip_smoke. The machine with the card has none of the others. The msgpack
 reader that replaces flax.serialization is held against it here.
 """
@@ -23,7 +23,8 @@ ALLOWED = {"torch", "numpy", "geocalib_tpu_torch", "chip_smoke"}
 FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "PIL", "cv2", "geocalib_tpu", "triton"}
 FILES = sorted((ROOT / "geocalib_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_path_witness.py",
-    ROOT / "tools" / "nmf_stage_times.py", ROOT / "tools" / "nmf_order_sensitivity.py"]
+    ROOT / "tools" / "nmf_stage_times.py", ROOT / "tools" / "nmf_order_sensitivity.py",
+    ROOT / "tools" / "lm_kernel_sweep.py"]
 
 
 def _imports(path: Path):

@@ -3,10 +3,11 @@
 
 Serves requests a, c, d and e of chip_smoke.py (its weights and its
 ``smoke_requests``) on one card through geocalib_tpu_torch, first with the plain PyTorch
-versions of both kernels (the reference of chip_smoke.py's whole-path check),
-then by other routes, and prints for each route and request the largest
-roll/pitch/vFoV deviation from the reference in degrees and whether stop_at
-is equal in every lane:
+versions of both kernels (the reference of chip_smoke.py's whole-path gate),
+then by other routes, each with the solver's early stop off (converged) and
+on (serving), and judges each route by chip_smoke.gate_verdict, once for each
+share of the plain path's vFoV uncertainty given by --shares as the serving
+comparison's vFoV bound (never below 0.05 degrees):
 
 - a control with no kernel: the plain NMF with its products summed in float64
   (rounded to bf16 at the same points as nmf_plain), the LM plain;
@@ -14,23 +15,24 @@ is equal in every lane:
   NMF's stats stage given by --chunks: the chunk sets the order in which
   coef^T x is summed.
 
-chip_smoke.py's check holds the kernels' route within 0.05 degrees of the
-reference; the control shows how much of that any other order of summation
-takes by itself.
+The control shows how much of the gate's bound any other order of summation
+takes by itself: a gate that the control fails cannot judge a kernel.
 
 Run from the repository root, on a machine with one card:
 
-    python3 tools/nmf_order_sensitivity.py [--chunks 1024,1536,2048]
+    python3 tools/nmf_order_sensitivity.py [--chunks 1024,1536,2048] [--shares 0,0.01]
 
-The last line is one JSON object with the deviations printed above.
+The last line is one JSON object with the verdicts printed above.
 """
 
 import argparse
 import contextlib
+import faulthandler
 import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -40,6 +42,9 @@ import geocalib_tpu_torch  # noqa: E402
 from geocalib_tpu_torch.models import hamburger  # noqa: E402
 from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack  # noqa: E402
 from geocalib_tpu_torch.ops import nmf as nmf_ops  # noqa: E402
+
+
+WATCHDOG_S = 1200  # the whole run takes about a minute on one H100; a hang ends here
 
 
 def nmf_float64(x, bases, steps=7, inv_t=1.0, eps=1e-6):
@@ -73,53 +78,52 @@ def nmf_in_float64():
         hamburger.nmf_reconstruct = fn
 
 
-def deviations(outs: dict, ref: dict) -> dict:
-    row = {}
-    for k, out in outs.items():
-        p = ref[k]
-        dev = max(float(torch.rad2deg((a - b).abs()).max()) for a, b in [
-            (out["gravity"].roll, p["gravity"].roll), (out["gravity"].pitch, p["gravity"].pitch),
-            (out["camera"].vfov, p["camera"].vfov)])
-        row[k] = {"max_dev_deg": dev, "stop_at_equal": bool(torch.equal(out["stop_at"], p["stop_at"]))}
-    return row
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("nmf_order_sensitivity: no CUDA card", file=sys.stderr)
         return 1
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     parser = argparse.ArgumentParser()
     parser.add_argument("--chunks", default="1024,1536,2048")
+    parser.add_argument("--shares", default="0,0.01",
+                        help="shares of the plain path's vFoV uncertainty to bound the serving "
+                             "comparison's vFoV by")
     args = parser.parse_args()
+    shares = [float(x) for x in args.shares.split(",")]
     smoke.log(f"card: {smoke.card_name()}")
     weights = params_from_jax(read_flax_msgpack(smoke.WEIGHTS), "b")
     calib = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16")
     calib_h = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16",
                                           init_mode="heuristic")
-    requests = {k: v for k, v in smoke.smoke_requests(calib, calib_h)[0].items() if k in "acde"}
+    requests = smoke.smoke_requests(calib, calib_h)[0]
 
-    def serve_all():
-        return {k: cal.calibrate(imgs, **kw) for k, (cal, imgs, kw) in requests.items()}
-
-    serve_all()  # warm up
+    smoke.gate_serve(requests)  # warm up
     with smoke.plain_versions():
-        ref = serve_all()
+        ref = smoke.gate_serve(requests)
     result = {}
+
+    def judge(route: str) -> None:
+        outs = smoke.gate_serve(requests)
+        result[route] = {share: smoke.gate_verdict(route, outs, ref, share) for share in shares}
+
     with smoke.plain_versions(nmf=False), nmf_in_float64():
-        result["plain, NMF sums in float64"] = deviations(serve_all(), ref)
+        judge("plain, NMF sums in float64")
     default = nmf_ops.TOKENS_PER_CHUNK
     try:
         for chunk in (int(c) for c in args.chunks.split(",")):
             nmf_ops.TOKENS_PER_CHUNK = chunk
-            result[f"kernels, chunk {chunk}"] = deviations(serve_all(), ref)
+            judge(f"kernels, chunk {chunk}")
             with smoke.plain_versions(lm=True, nmf=False):
-                result[f"NMF kernel only, chunk {chunk}"] = deviations(serve_all(), ref)
+                judge(f"NMF kernel only, chunk {chunk}")
     finally:
         nmf_ops.TOKENS_PER_CHUNK = default
-    for route, row in result.items():
-        smoke.log(f"{route}: " + ", ".join(
-            f"{k} {v['max_dev_deg']:.5f} deg{'' if v['stop_at_equal'] else ' (stop_at differs)'}"
-            for k, v in row.items()))
+    for route, verdicts in result.items():
+        for share, v in verdicts.items():
+            smoke.log(f"{route}, serving vfov bound max({smoke.ANGLE_TOL}, {share} sigma): "
+                      f"{'passed' if v['ok'] else 'FAILED'}; converged max roll/pitch/vfov "
+                      + ", ".join(f"{k} {np.round(d, 5).tolist()}"
+                                  for k, d in v["max_dev_deg"]["converged"].items())
+                      + f"; serving lanes stopping apart: {len(v['stop_apart'])}")
     print(json.dumps(result), flush=True)
     return 0
 

@@ -20,6 +20,7 @@ The last line is one JSON object with the numbers printed above.
 """
 
 import argparse
+import faulthandler
 import json
 import re
 import subprocess
@@ -35,6 +36,7 @@ from geocalib_tpu_torch.ops import build, nmf as nmf_ops  # noqa: E402
 
 SHAPE = (32, 8320, 512, 64)  # request a: 2B samples, N, D, R
 STEPS = 7
+WATCHDOG_S = 600  # the run takes under a minute on one H100; a hang ends here
 
 
 def device_us(evt) -> float:
@@ -69,6 +71,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("nmf_stage_times: no CUDA card", file=sys.stderr)
         return 1
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     parser = argparse.ArgumentParser()
     parser.add_argument("--chunks", default="1024,1536,2048")
     args = parser.parse_args()

@@ -22,6 +22,7 @@ Run from the repository root, on a machine with one card:
     python3 tools/torch_path_witness.py
 """
 
+import faulthandler
 import json
 import math
 import sys
@@ -42,6 +43,7 @@ ROUTES = {  # name -> (LM plain, NMF plain)
     "lm kernel only": (False, True),
     "nmf kernel only": (True, False),
 }
+WATCHDOG_S = 600  # the run takes about 40 s on one H100; a hang ends here
 
 
 def flat_scenes(rng: np.random.Generator, n: int, h: int, w: int) -> np.ndarray:
@@ -117,6 +119,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_path_witness: no CUDA card", file=sys.stderr)
         return 1
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     smoke.log(f"card: {smoke.card_name()}")
     weights = params_from_jax(read_flax_msgpack(smoke.WEIGHTS), "b")
     calib = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16")
