@@ -55,23 +55,13 @@
 
 namespace cg = cooperative_groups;
 
-// Tuning knobs, set by tools/lm_kernel_sweep.py; the defaults are what the
-// port builds.
-#ifndef GC_LM_THREADS
-#define GC_LM_THREADS 256
-#endif
-#ifndef GC_LM_CLUSTER
-#define GC_LM_CLUSTER 16
-#endif
-#ifndef GC_LM_MIN_BLOCKS
-#define GC_LM_MIN_BLOCKS 3
-#endif
-
 namespace {
 
-constexpr int kThreads = GC_LM_THREADS;
+// The launch geometry (tools/lm_kernel_sweep.py times other values on a patched copy)
+constexpr int kThreads = 256;
+constexpr int kCluster = 16;   // blocks per lane; above 8 is a non-portable size
+constexpr int kMinBlocks = 3;  // blocks per SM the register budget must allow
 constexpr int kWarps = kThreads / 32;
-constexpr int kCluster = GC_LM_CLUSTER;  // blocks per lane; above 8 is a non-portable size
 constexpr int kVec = 4;                  // adjacent pixels a thread takes at a time
 constexpr int kTableW = 4096;            // columns whose u and gx a block keeps in shared memory
 constexpr int kNumModels = 4;
@@ -404,7 +394,7 @@ struct Planes {
 };
 
 template <int MODEL, int F>
-__global__ void __launch_bounds__(kThreads, GC_LM_MIN_BLOCKS) lm_system_kernel(LMArgs a) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) lm_system_kernel(LMArgs a) {
   constexpr int P = 3 + Dist<MODEL>::K;
   constexpr int S = P + P * (P + 1) / 2 + 1;
   cg::cluster_group cluster = cg::this_cluster();

@@ -3,9 +3,9 @@
 
 Builds geocalib_tpu_torch/csrc/lm_system.cu once per variant given by
 --variants (threads per block x blocks per lane, one cluster x the launch
-bound's blocks per SM, the macros GC_LM_THREADS, GC_LM_CLUSTER and
-GC_LM_MIN_BLOCKS), each by an nvcc process of its own, all started together,
-into build/lm_sweep/. Then, on one card, times each variant's four model
+bound's blocks per SM: the source's constants kThreads, kCluster and
+kMinBlocks, set in a patched copy under build/lm_sweep/), each by an nvcc
+process of its own, all started together, into build/lm_sweep/. Then, on one card, times each variant's four model
 instances (all five planes, the huber loss) at request a's shape of
 chip_smoke.py (N = 320 x 416) at the batch sizes of --batches (B = 16 is
 request a's), by CUDA events
@@ -23,8 +23,8 @@ Run from the repository root, on a machine with one card:
     python3 tools/lm_kernel_sweep.py [--variants 512x8x1,256x8x1,256x16x2] [--batches 16,8,1]
         [--baseline DIR]
 
-A variant may name another source with the same C entry (512x8x1@path.cu);
---baseline DIR times the LM kernel of another checkout (for example the
+A variant may name another source with the same C entry (512x8x1@path.cu,
+patched the same way), or take a source as it is (@path.cu); --baseline DIR times the LM kernel of another checkout (for example the
 parent commit, unpacked with git archive) in a process of its own, first.
 
 The last line is one JSON object with the numbers printed above.
@@ -58,19 +58,31 @@ H, W = 320, 416  # request a's planes
 VEC = 4  # pixels a thread takes per loop iteration (kVec in the source)
 
 
+def patched(source: str, geometry: str) -> str:
+    """The source with kThreads, kCluster and kMinBlocks set to THREADSxCLUSTERxMIN_BLOCKS."""
+    for name, value in zip(("kThreads", "kCluster", "kMinBlocks"), geometry.split("x")):
+        source, n = re.subn(rf"(constexpr int {name} = )\d+;", rf"\g<1>{int(value)};", source)
+        if n != 1:
+            raise ValueError(f"the source defines {name} {n} times, not once")
+    return source
+
+
 def build_variants(variants):
     """One shared library per variant, nvcc processes started together. A variant is
-    THREADSxCLUSTERxMIN_BLOCKS, optionally @ another source file of the same C entry."""
+    THREADSxCLUSTERxMIN_BLOCKS, optionally @ another source file of the same C entry,
+    or @ a source alone, built as it is."""
     SWEEP_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     procs = {}
     for i, v in enumerate(variants):
         geometry, _, source = v.partition("@")
-        threads, cluster, min_blocks = geometry.split("x")
-        so = SWEEP_DIR / f"lm_{i}_{geometry}.so"
-        cmd = [nvcc, *build.NVCC_FLAGS, f"-DGC_LM_THREADS={threads}",
-               f"-DGC_LM_CLUSTER={cluster}", f"-DGC_LM_MIN_BLOCKS={min_blocks}", "-shared",
-               "-o", str(so), source or str(SOURCE)]
+        source = Path(source or SOURCE)
+        so = SWEEP_DIR / f"lm_{i}_{geometry or source.stem}.so"
+        if geometry:
+            copy = so.with_suffix(".cu")
+            copy.write_text(patched(source.read_text(), geometry))
+            source = copy
+        cmd = [nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(so), str(source)]
         procs[v] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                          text=True))
     libs = {}

@@ -5,9 +5,8 @@ Serves requests a, c, d and e of chip_smoke.py (its weights and its
 ``smoke_requests``) on one card through geocalib_tpu_torch, first with the plain PyTorch
 versions of both kernels (the reference of chip_smoke.py's whole-path gate),
 then by other routes, each with the solver's early stop off (converged) and
-on (serving), and judges each route by chip_smoke.gate_verdict, once for each
-share of the plain path's vFoV uncertainty given by --shares as the serving
-comparison's vFoV bound (never below 0.05 degrees):
+on (serving), and judges each route by chip_smoke.gate_verdict, the converged
+comparison (the gate proper) and the serving one apart:
 
 - a control with no kernel: the plain NMF with its products summed in float64
   (rounded to bf16 at the same points as nmf_plain), the LM plain;
@@ -20,7 +19,7 @@ takes by itself: a gate that the control fails cannot judge a kernel.
 
 Run from the repository root, on a machine with one card:
 
-    python3 tools/nmf_order_sensitivity.py [--chunks 1024,1536,2048] [--shares 0,0.01]
+    python3 tools/nmf_order_sensitivity.py [--chunks 1024,1536,2048]
 
 The last line is one JSON object with the verdicts printed above.
 """
@@ -85,11 +84,7 @@ def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     parser = argparse.ArgumentParser()
     parser.add_argument("--chunks", default="1024,1536,2048")
-    parser.add_argument("--shares", default="0,0.01",
-                        help="shares of the plain path's vFoV uncertainty to bound the serving "
-                             "comparison's vFoV by")
     args = parser.parse_args()
-    shares = [float(x) for x in args.shares.split(",")]
     smoke.log(f"card: {smoke.card_name()}")
     weights = params_from_jax(read_flax_msgpack(smoke.WEIGHTS), "b")
     calib = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16")
@@ -104,7 +99,7 @@ def main() -> int:
 
     def judge(route: str) -> None:
         outs = smoke.gate_serve(requests)
-        result[route] = {share: smoke.gate_verdict(route, outs, ref, share) for share in shares}
+        result[route] = smoke.gate_verdict(route, outs, ref)
 
     with smoke.plain_versions(nmf=False), nmf_in_float64():
         judge("plain, NMF sums in float64")
@@ -117,13 +112,14 @@ def main() -> int:
                 judge(f"NMF kernel only, chunk {chunk}")
     finally:
         nmf_ops.TOKENS_PER_CHUNK = default
-    for route, verdicts in result.items():
-        for share, v in verdicts.items():
-            smoke.log(f"{route}, serving vfov bound max({smoke.ANGLE_TOL}, {share} sigma): "
-                      f"{'passed' if v['ok'] else 'FAILED'}; converged max roll/pitch/vfov "
-                      + ", ".join(f"{k} {np.round(d, 5).tolist()}"
-                                  for k, d in v["max_dev_deg"]["converged"].items())
-                      + f"; serving lanes stopping apart: {len(v['stop_apart'])}")
+    verdict = lambda ok: "passed" if ok else "FAILED"
+    for route, v in result.items():
+        smoke.log(f"{route}: converged {verdict(v['ok_converged'])}, serving "
+                  f"{verdict(v['ok_serving'])}; max roll/pitch/vfov "
+                  + "; ".join(f"{mode} " + ", ".join(f"{k} {np.round(d, 5).tolist()}"
+                                                      for k, d in v["max_dev_deg"][mode].items())
+                              for mode in ("converged", "serving"))
+                  + f"; serving lanes stopping apart: {len(v['stop_apart'])}")
     print(json.dumps(result), flush=True)
     return 0
 
