@@ -27,6 +27,22 @@ lane) and serving (early stop on, as users run it: lanes that stop at the
 same iteration within 0.05 degrees of roll, pitch and vFoV; lanes that stop
 apart must be one iteration apart, and are named).
 
+Then the train phase, a path of its own: from the same weights (parameters
+and BatchNorm statistics), MSCAN-B, bf16 network, drop path 0.1, batch 24 of
+rendered 320x320 views, 3 train_steps with IFT gradients through the LM and
+1 with the LM unrolled (through the LM kernel's VJP). The steps must be
+finite, move the parameters and the running statistics, and launch the LM
+kernel 11 times each (10 loop systems and the final cost) and the NMF kernel
+never (training runs the plain NMF, as the JAX package runs XLA's). The step
+time (CUDA events), the peak memory and the LM kernel's share of a step are
+printed with the card. Then one step's loss and gradients through the
+kernels are held against the plain versions (cuDNN deterministic, drop path
+0, same state and key), in IFT and unroll mode, after two plain runs are
+shown to give the same bits: loss terms within 1e-4, the gradient's global
+norm within 1e-3, each leaf over 1e-6 of it within 1e-2 relative L2. A
+broken VJP (zero cotangents for the confidence planes) must fail that
+comparison in unroll mode.
+
 Run from the repository root, on a machine with one card:
 
     python3 chip_smoke.py
@@ -38,6 +54,7 @@ repository. Every line is flushed as it is printed; the last line is
 
 import contextlib
 import copy
+import dataclasses
 import faulthandler
 import json
 import math
@@ -52,7 +69,9 @@ import numpy as np
 import torch
 
 import geocalib_tpu_torch
+from geocalib_tpu_torch.data.dataset import synthesize_gt_fields
 from geocalib_tpu_torch.geometry import planar_fields as pf
+from geocalib_tpu_torch.training import train_step as train_lib
 from geocalib_tpu_torch.models import hamburger
 from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
 from geocalib_tpu_torch.ops import build, lm_system as lm_ops, nmf as nmf_ops
@@ -90,6 +109,11 @@ ROLL_TOL = 3.0    # degrees, request a's roll against the rendered views (r05 we
 FOCAL_PRIOR = {"focal": 500.0}  # request c's prior, in input pixels
 SHARED_VFOV = 0.9  # radians, request d's one camera
 DIVISION_K1 = -0.3  # request e's lens, division model in normalised coordinates
+TRAIN_B, TRAIN_SIZE = 24, 320  # the JAX package's training batch and crop
+TRAIN_LOSS_TOL = 1e-4  # relative, each loss term, kernels against plain versions
+TRAIN_NORM_TOL = 1e-3  # relative, the gradient's global norm
+TRAIN_LEAF_TOL = 1e-2  # relative L2, each gradient leaf over TRAIN_LEAF_SHARE of the norm
+TRAIN_LEAF_SHARE = 1e-6
 
 
 def card_name() -> str:
@@ -541,6 +565,264 @@ def smoke_requests(calib, calib_h) -> Tuple[dict, dict]:
     return requests, {"a": truth, "d": truth_d, "e": truth_e}
 
 
+# ---------------------------------------------------------------- train phase
+
+def train_batch(rng: np.random.Generator) -> dict:
+    """Rendered views as a loader batch: images and gt_params rows (w, h, vfov, roll,
+    pitch, k1, k2) in radians, as batch_gt reads them."""
+    images, truth = scenes(rng, TRAIN_B, TRAIN_SIZE, TRAIN_SIZE)
+    gt = [[TRAIN_SIZE, TRAIN_SIZE, math.radians(fov), math.radians(roll), math.radians(pitch),
+           0.0, 0.0] for roll, pitch, fov in truth]
+    return {"image": torch.from_numpy(images).cuda(),
+            "gt_params": torch.tensor(gt, dtype=torch.float32, device="cuda")}
+
+
+def timed(fn):
+    """(result, milliseconds) of fn() between CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def device_time_by_kernel(fn) -> Tuple[float, float]:
+    """(ms of the LM kernel, ms of all device kernels) in one fn() traced by torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    lm = sum(e.time_range.elapsed_us() for e in kernels if "lm_system_kernel" in e.name) / 1e3
+    return lm, total
+
+
+def grad_compare(label: str, out: tuple, ref: tuple) -> dict:
+    """One step's losses and gradients (compute_grads' output) against another's."""
+    _, grads, _, losses, _ = out
+    _, rgrads, _, rlosses, _ = ref
+    loss_dev = {k: rel_dev(losses[k].detach(), rlosses[k].detach()) for k in rlosses}
+    norm = lambda g: float(torch.sqrt(sum((v.double() ** 2).sum() for v in g.values())))
+    gnorm, rnorm = norm(grads), norm(rgrads)
+    leaves = {k: float(torch.linalg.norm((grads[k] - v).double()) / torch.linalg.norm(v.double()))
+              for k, v in rgrads.items() if float(torch.linalg.norm(v.double())) > TRAIN_LEAF_SHARE * rnorm}
+    worst = max(leaves, key=leaves.get)
+    for k, v in sorted(leaves.items(), key=lambda kv: -kv[1])[:5]:
+        share = float(torch.linalg.norm(rgrads[k].double())) / rnorm
+        log(f"train gradients, {label}: leaf {k} relative L2 {v:.3e}, share of the norm "
+            f"{share:.3e}")
+    result = {"loss_rel": max(loss_dev.values()), "norm_rel": abs(gnorm - rnorm) / rnorm,
+              "leaf_rel": leaves[worst], "worst_leaf": worst, "leaves": len(leaves),
+              "leaves_over_tol": sum(v > TRAIN_LEAF_TOL for v in leaves.values())}
+    result["ok"] = (result["loss_rel"] <= TRAIN_LOSS_TOL and result["norm_rel"] <= TRAIN_NORM_TOL
+                    and result["leaf_rel"] <= TRAIN_LEAF_TOL)
+    log(f"train gradients, {label}: loss terms {result['loss_rel']:.3e} (bound {TRAIN_LOSS_TOL}), "
+        f"global norm {result['norm_rel']:.3e} ({TRAIN_NORM_TOL}), worst leaf "
+        f"{result['leaf_rel']:.3e} ({TRAIN_LEAF_TOL}) in {worst}, {result['leaves_over_tol']} of "
+        f"{len(leaves)} leaves over: {'passes' if result['ok'] else 'FAILS'}")
+    return result
+
+
+@contextlib.contextmanager
+def broken_vjp():
+    """The LM kernel's VJP returning zero cotangents for the confidence planes."""
+    fn = lm_ops.LMSystemFunction
+    backward = fn.backward
+
+    def zero_conf(ctx, *cts):
+        grads = list(backward(ctx, *cts))
+        for i, key in enumerate(ctx.spec[0]):
+            if key.endswith("_conf") and grads[3 + i] is not None:
+                grads[3 + i] = torch.zeros_like(grads[3 + i])
+        return tuple(grads)
+
+    fn.backward = staticmethod(zero_conf)
+    try:
+        yield
+    finally:
+        fn.backward = backward
+
+
+@contextlib.contextmanager
+def perturbed_plain_lm():
+    """The plain LM system with G scaled by 1 + 2^-22: a change of the size of a float32
+    rounding, with no kernel (the control of the bf16 comparison)."""
+    def perturbed(*args, **kw):
+        G, H, cost = lm_ops.lm_system_plain(*args, **kw)
+        return G * (1.0 + 2.0 ** -22), H, cost
+
+    fn = lm_solver.lm_system
+    lm_solver.lm_system = perturbed
+    try:
+        yield
+    finally:
+        lm_solver.lm_system = fn
+
+
+def compare_routes(cfg, weights: dict, batch: dict, judged: bool) -> dict:
+    """One step's gradients by the kernels against the plain versions, same state and key,
+    after two plain runs are checked to give the same bits. judged: the comparison must
+    pass, and in unroll mode the broken VJP must fail it; otherwise it is reported with
+    the control (perturbed_plain_lm) beside it."""
+    label = f"{cfg.compute_dtype} network, {cfg.lm_grad_mode}"
+    net, state = train_lib.create_train_state(cfg, weights, device="cuda")
+    run = lambda: train_lib.compute_grads(net, cfg, state, batch, (0, 5))
+    with plain_versions(lm=True, nmf=False):
+        ref, ref2 = run(), run()
+    same = torch.equal(ref[0], ref2[0]) and all(torch.equal(ref[1][k], ref2[1][k]) for k in ref[1])
+    log(f"train gradients, {label}: two plain runs bitwise equal: {same}")
+    check(same, f"{label}: two plain runs differ, so the comparison would not measure the kernel")
+    del ref2
+    out = {"kernels": grad_compare(f"{label}, kernels vs plain", run(), ref)}
+    if judged:
+        check(out["kernels"]["ok"], f"train gradients, {label}: kernels vs plain {out['kernels']}")
+        with broken_vjp():
+            out["broken_vjp"] = grad_compare(f"{label}, broken VJP (confidence planes 0) vs plain",
+                                             run(), ref)
+        if cfg.lm_grad_mode == "unroll":
+            check(not out["broken_vjp"]["ok"], "the broken VJP passed the gradient comparison")
+    else:
+        with perturbed_plain_lm():
+            out["control"] = grad_compare(f"{label}, control (plain, G x (1 + 2^-22)) vs plain",
+                                          run(), ref)
+    del ref, net, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def vjp_timing(obs, camera, gravity, h: int, w: int, cfg) -> dict:
+    """The VJP of one LM system at the training shape: the Function's backward (which
+    recomputes the plain version) against autograd's backward through a plain forward."""
+    B = camera.f.shape[0]
+    P = cfg.num_params
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cts = [torch.randn(s, device="cuda", generator=gen) for s in ((B, P), (B, P, P), (B,))]
+
+    def backward(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (camera.data, gravity.vec3d,
+                                                                *obs.values())]
+        with torch.enable_grad():
+            out = fn(dict(zip(obs, leaves[2:])), Camera.from_data(leaves[0], camera.model),
+                     Gravity(leaves[1]), h, w, cfg)
+        torch.cuda.synchronize()
+        return timed(lambda: torch.autograd.grad(out, leaves, cts))
+
+    for fn in (lm_ops.lm_system, lm_ops.lm_system_plain):  # warm
+        backward(fn)
+    (g_kernel, ms), (g_plain, plain_ms) = backward(lm_ops.lm_system), backward(lm_ops.lm_system_plain)
+    err = max(float((a - b).abs().max()) for a, b in zip(g_kernel, g_plain))
+    nbytes = sum(t.numel() * t.element_size() for t in (*obs.values(), camera.data, gravity.vec3d,
+                                                         *cts)) * 2 - sum(c.numel() * 4 for c in cts)
+    log(f"lm kernel VJP B={B} N={h * w}: {ms:.4f} ms (recomputes the plain system), autograd's "
+        f"backward through a plain forward {plain_ms:.4f} ms, max abs difference {err:.3e}, "
+        f"{nbytes / 1e6:.1f} MB -> {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    return {"route": "plain PyTorch backward of lm_system_plain (ops/lm_system.py "
+                     "LMSystemFunction)", "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
+
+
+def train_phase(weights: dict, card: str) -> dict:
+    """3 IFT steps and 1 unrolled step at MSCAN-B width on the card, then kernels against
+    plain versions on one step's gradients, and a broken VJP that must fail that check."""
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    batch = train_batch(np.random.default_rng(3))
+    cfg = train_lib.TrainConfig()  # MSCAN-B, bf16, drop path 0.1, 10 LM steps, IFT
+    cfg_u = replace_cfg(cfg, lm_grad_mode="unroll")
+    net, state0 = train_lib.create_train_state(cfg, weights, device="cuda")
+    log(f"train: batch {TRAIN_B} x {TRAIN_SIZE}x{TRAIN_SIZE}, {cfg}")
+
+    zero_counts()
+    lm_ops.lm_system.vjp_calls = 0
+    state, step_ms, scalars_all = state0, [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i, c in enumerate((cfg, cfg, cfg, cfg_u)):
+        (state, scalars), ms = timed(lambda: train_lib.train_step(net, c, state, batch, (0, i)))
+        scalars = {k: float(v) for k, v in scalars.items()}
+        scalars_all.append(scalars)
+        step_ms.append(ms)
+        log(f"train step {i} ({c.lm_grad_mode}): {ms:.1f} ms, loss {scalars['loss/total']:.5f}, "
+            f"grad_norm {scalars['grad_norm']:.4f}, roll error {scalars['metric/roll_error']:.3f} "
+            f"deg, vfov error {scalars['metric/vfov_error']:.3f} deg, skipped "
+            f"{scalars['skipped_nonfinite']:.0f}")
+        check(all(math.isfinite(v) for v in scalars.values()), f"train step {i}: {scalars}")
+        check(scalars["skipped_nonfinite"] == 0.0 and scalars["grad_nonfinite"] == 0.0,
+              f"train step {i} skipped or had non-finite gradients")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    counts = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches,
+              "lm_vjp_calls": lm_ops.lm_system.vjp_calls}
+    log(f"train path launches: {json.dumps(counts)}")
+    check(counts["lm_system"] == 4 * (cfg.lm_steps + 1) and counts["nmf"] == 0,
+          f"train path: the LM kernel must launch {cfg.lm_steps + 1} times a step and the NMF "
+          f"kernel never: {counts}")
+    check(counts["lm_vjp_calls"] == cfg.lm_steps, f"unrolled step: {counts['lm_vjp_calls']} VJPs")
+    moved = sum(not torch.equal(state.params[k], v) for k, v in state0.params.items())
+    stats_moved = sum(not torch.equal(state.batch_stats[k], v) for k, v in state0.batch_stats.items())
+    log(f"train: {moved} of {len(state0.params)} parameters and {stats_moved} of "
+        f"{len(state0.batch_stats)} running statistics moved")
+    check(moved >= 0.9 * len(state0.params) and stats_moved == len(state0.batch_stats),
+          "train: the parameters or running statistics did not move")
+
+    lm_ms, device_ms = device_time_by_kernel(
+        lambda: train_lib.train_step(net, cfg, state, batch, (0, 9)))
+    ift_ms = sum(step_ms[1:3]) / 2
+    log(f"train step, IFT (mean of steps 1-2, after a warm step): {ift_ms:.1f} ms; unrolled "
+        f"{step_ms[3]:.1f} ms; peak memory {peak_gb:.2f} GiB; in one traced IFT step the LM kernel "
+        f"takes {lm_ms:.4f} ms of {device_ms:.1f} ms of device kernels ({lm_ms / ift_ms:.5f} of the "
+        f"step); card {card}")
+    grads_ms = timed(lambda: train_lib.compute_grads(net, cfg, state, batch, (0, 9)))[1]
+    ones = {k: torch.ones_like(v) for k, v in state.params.items()}
+    opt_ms = timed(lambda: train_lib.optimizer_update(ones, state.opt_state, state.params, cfg))[1]
+    log(f"train step, IFT, parts: forward, LM and backward (compute_grads) {grads_ms:.1f} ms, the "
+        f"optimizer over {len(ones)} leaves {opt_ms:.1f} ms")
+    del state, net
+
+    # kernels against plain versions on one step's gradients: judged with a float32
+    # network, where the comparison measures the LM kernel; with the bf16 network of the
+    # steps above it is reported beside a control that changes the plain LM by one
+    # rounding, because the bf16 backward turns any such change into leaf noise
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    compare = {}
+    for dtype in ("float32", "bfloat16"):
+        for mode in ("ift", "unroll"):
+            c = replace_cfg(cfg, drop_path_rate=0.0, compute_dtype=dtype, lm_grad_mode=mode)
+            compare[f"{dtype} {mode}"] = compare_routes(c, weights, batch, judged=dtype == "float32")
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+
+    _, obs, camera, gravity, h, w, _ = request_system_train(batch, cfg)
+    vjp = vjp_timing(obs, camera, gravity, h, w, cfg.lm_config())
+    vjp["calls"] = counts["lm_vjp_calls"]
+    return {"launches": counts, "step_ms": step_ms, "ift_step_ms": ift_ms,
+            "unroll_step_ms": step_ms[3], "peak_gib": peak_gb, "lm_kernel_ms_per_step": lm_ms,
+            "device_kernel_ms_per_step": device_ms, "lm_share": lm_ms / ift_ms,
+            "compute_grads_ms": grads_ms, "optimizer_ms": opt_ms,
+            "scalars": scalars_all, "compare": compare, "vjp": vjp}
+
+
+def replace_cfg(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)
+
+
+def request_system_train(batch: dict, cfg):
+    """The LM system of a training step's solver, at the training shape: the trivial
+    estimate on the GT cameras' fields, with confidences of 0.5 (all five planes)."""
+    data = synthesize_gt_fields(batch, cfg.camera_model)
+    conf = torch.full(data["up_field"].shape[:3], 0.5, device=data["up_field"].device)
+    fields = {"up_field": data["up_field"], "latitude_field": data["latitude_field"],
+              "up_confidence": conf, "latitude_confidence": conf}
+    lm_cfg = cfg.lm_config()
+    obs, h, w = flatten_observations(fields, lm_cfg)
+    camera, gravity = get_trivial_estimation(fields, lm_cfg)
+    return fields, obs, camera, gravity, h, w, lm_cfg
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -627,18 +909,28 @@ def main() -> int:
     gate = gate_verdict("kernels", outs_gate, refs_gate)
     check(gate["ok"], f"whole-path gate: {gate['failures']}")
 
+    train = train_phase(weights, card)
+
     by_model = {m: sum(c["lm_system_by_model"].get(m, 0) for c in counts.values())
                 for m in lm_ops.MODEL_IDS}
+    by_model["pinhole"] += train["launches"]["lm_system"]
     for model, entry in lm["per_model"].items():
         entry["launches"] = by_model[model]
+    paths = lambda name: {"serving a-e": launches[name], "train": train["launches"][name]}
     kernels = [
         {"name": "lm_system", "route": "cuda", "source": "geocalib_tpu_torch/csrc/lm_system.cu",
-         "replaces": "geocalib_tpu/ops/lm_kernel.py:195", "launches": launches["lm_system"],
-         **lm},
+         "replaces": "geocalib_tpu/ops/lm_kernel.py:195",
+         "launches": launches["lm_system"] + train["launches"]["lm_system"],
+         "launches_by_path": paths("lm_system"), **lm,
+         "vjp": {**train["vjp"], "replaces": "geocalib_tpu/ops/lm_kernel.py:221-249"}},
         {"name": "nmf", "route": "cuda", "source": "geocalib_tpu_torch/csrc/nmf.cu",
          "replaces": "geocalib_tpu/ops/nmf_kernel.py:86", "launches": launches["nmf"],
-         **nmf},
+         "launches_by_path": paths("nmf"), **nmf},
     ]
+    train_line = {k: train[k] for k in ("ift_step_ms", "unroll_step_ms", "step_ms", "peak_gib",
+                                        "lm_kernel_ms_per_step", "device_kernel_ms_per_step",
+                                        "lm_share", "compute_grads_ms", "optimizer_ms", "compare")}
+    log(json.dumps({"train": train_line, "card": card}, default=str))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

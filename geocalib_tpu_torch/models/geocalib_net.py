@@ -9,18 +9,25 @@ head runs at its own width.
 Input image (B, H, W, 3) RGB in [0, 1], H and W multiples of 32. Output
 fields are channel-last as in the JAX package: up_field (B, H, W, 2),
 latitude_field (B, H, W, 1), up_confidence / latitude_confidence (B, H, W).
+
+``forward`` is the evaluation path; ``forward_train`` mirrors
+``fused_forward_train`` (models/fused_heads.py:399-452): the backbone in
+training mode, the heads' NMF from bases drawn from the step's NMF key.
 """
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from geocalib_tpu_torch.models.hamburger import LightHamHead, eval_bases, nmf_2d
+from geocalib_tpu_torch.models.hamburger import (LightHamHead, eval_bases, nmf_2d, nmf_2d_train,
+                                                 train_bases)
 from geocalib_tpu_torch.models.modules import ConvModule
 from geocalib_tpu_torch.models.mscan import MSCAN, MSCAN_VARIANTS
+from geocalib_tpu_torch.utils.threefry import Key
 
 Tensor = torch.Tensor
+RUNNING_STATS = ("running_mean", "running_var")
 
 
 class LowLevelEncoder(nn.Module):
@@ -40,13 +47,13 @@ class LowLevelEncoder(nn.Module):
 class GeoCalibNet(nn.Module):
     """Perspective-field network; ``variant`` is "b" (released) or "tiny" (tests)."""
 
-    def __init__(self, variant: str = "b"):
+    def __init__(self, variant: str = "b", drop_path_rate: float = 0.0):
         super().__init__()
         dims, ratios, depths = MSCAN_VARIANTS[variant]
         out_ch = min(64, dims[0])
         ham_ch = min(512, sum(dims))
         self.variant = variant
-        self.backbone = MSCAN(dims, ratios, depths)
+        self.backbone = MSCAN(dims, ratios, depths, drop_path_rate=drop_path_rate)
         self.low_level = LowLevelEncoder(out_ch)
         self.up_head = LightHamHead(sum(dims), ham_ch, out_ch)
         self.up_proj = nn.Conv2d(out_ch, 2, 1)
@@ -59,20 +66,52 @@ class GeoCalibNet(nn.Module):
         tokens (2B, h*w, C) stacks the up head's NMF input over the latitude
         head's; bases (2B, C, R) tiles the evaluation draw over both halves.
         """
+        xu, xl, ll, tokens = self._trunk(image)
+        bases = eval_bases(xu.shape[0], tokens.shape[2], tokens.device, tokens.dtype)
+        return xu, xl, ll, tokens, bases.repeat(2, 1, 1)
+
+    def _trunk(self, image: Tensor, generator: Optional[torch.Generator] = None
+               ) -> Tuple[Tensor, ...]:
         x = image.permute(0, 3, 1, 2)
-        hl = self.backbone(x)
+        hl = self.backbone(x, generator)
         ll = self.low_level(x)
         xu, hu = self.up_head.front(hl)
         xl, hlat = self.lat_head.front(hl)
         B, C, h, w = hu.shape
         tokens = torch.cat([hu, hlat], 0).permute(0, 2, 3, 1).reshape(2 * B, h * w, C)
-        bases = eval_bases(B, C, tokens.device, tokens.dtype).repeat(2, 1, 1)
-        return xu, xl, ll, tokens.contiguous(), bases
+        return xu, xl, ll, tokens.contiguous()
 
-    def forward(self, image: Tensor) -> Dict[str, Tensor]:
+    def forward(self, image: Tensor, nmf_key: Optional[Key] = None,
+                generator: Optional[torch.Generator] = None):
+        """The fields; with an NMF key, ``forward_train``'s (fields, running statistics),
+        so that ``torch.func.functional_call`` can drive either."""
+        if nmf_key is not None:
+            return self.forward_train(image, nmf_key, generator)
         xu, xl, ll, tokens, bases = self.front(image)
+        return self._fields(xu, xl, ll, nmf_2d(tokens, bases))
+
+    def forward_train(self, image: Tensor, nmf_key: Key,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+        """The training forward: call it on a net in training mode (``net.train()``).
+
+        BatchNorm normalises with batch statistics and updates its running
+        statistics in place; DropPath draws from ``generator``; the NMF runs its
+        6 training steps in plain PyTorch from bases ``uniform(nmf_key, (2B, C,
+        64))``, independent per stacked half. Returns the fields and the
+        BatchNorm running statistics after the update, by parameter name.
+        """
+        xu, xl, ll, tokens = self._trunk(image, generator)
+        bases = train_bases(nmf_key, tokens.shape[0], tokens.shape[2], tokens.device,
+                            tokens.dtype)
+        fields = self._fields(xu, xl, ll, nmf_2d_train(tokens, bases))
+        stats = {k: v for k, v in self.named_buffers() if k.endswith(RUNNING_STATS)}
+        return fields, stats
+
+    def _fields(self, xu: Tensor, xl: Tensor, ll: Tensor, recon: Tensor) -> Dict[str, Tensor]:
+        """The heads from the NMF's reconstruction (2B, h*w, C) to the four fields."""
         B, C, h, w = xu.shape
-        recon = nmf_2d(tokens, bases).reshape(2 * B, h, w, C).permute(0, 3, 1, 2)
+        recon = recon.reshape(2 * B, h, w, C).permute(0, 3, 1, 2)
 
         fu, conf_u = self.up_head.back(xu, recon[:B], ll)
         fl, conf_l = self.lat_head.back(xl, recon[B:], ll)

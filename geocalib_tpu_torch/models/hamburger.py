@@ -1,11 +1,13 @@
 """LightHamHead decoder (HamNet / SegNeXt) with the Hamburger NMF.
 
-Port of geocalib_tpu/models/hamburger.py as the serving path of
-models/fused_heads.py runs it: each head is split around its NMF, so that
-GeoCalibNet can stack both heads' tokens into one NMF of batch 2B. The
-bases are JAX's deterministic evaluation draw, ``uniform(PRNGKey(0),
-(B, D, R))``, reproduced bit for bit (utils/threefry.py) and tiled over the
-two halves.
+Port of geocalib_tpu/models/hamburger.py as models/fused_heads.py runs it:
+each head is split around its NMF, so that GeoCalibNet can stack both heads'
+tokens into one NMF of batch 2B. In evaluation the bases are JAX's
+deterministic draw, ``uniform(PRNGKey(0), (B, D, R))``, reproduced bit for
+bit (utils/threefry.py) and tiled over the two halves, and the NMF is the
+kernel's (7 steps). In training the bases are drawn per stacked half from the
+step's NMF key, and the NMF is ``NMF2D(train=True)``: 6 steps in plain
+PyTorch with autograd, never the kernel (fused_heads.py:190-191).
 """
 
 import functools
@@ -20,21 +22,21 @@ from geocalib_tpu_torch.models.modules import (
     FeatureFusionBlock,
     resize_bilinear,
 )
-from geocalib_tpu_torch.ops.nmf import nmf_reconstruct
-from geocalib_tpu_torch.utils.threefry import uniform
+from geocalib_tpu_torch.ops.nmf import nmf_plain, nmf_reconstruct
+from geocalib_tpu_torch.utils.threefry import Key, uniform_tensor
 
 Tensor = torch.Tensor
 
 NMF_RANK = 64
 NMF_EVAL_STEPS = 7
+NMF_TRAIN_STEPS = 6
 NMF_INV_T = 1.0
 NMF_EPS = 1e-6
 
 
 @functools.lru_cache(maxsize=16)
 def _eval_bases_cpu(B: int, D: int, R: int, dtype: torch.dtype) -> Tensor:
-    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
-    return torch.from_numpy(uniform(0, (B, D, R), name)).to(dtype)
+    return uniform_tensor(0, (B, D, R), dtype)
 
 
 def eval_bases(B: int, D: int, device, dtype: torch.dtype, R: int = NMF_RANK) -> Tensor:
@@ -42,9 +44,22 @@ def eval_bases(B: int, D: int, device, dtype: torch.dtype, R: int = NMF_RANK) ->
     return _eval_bases_cpu(B, D, R, dtype).to(device)
 
 
+def train_bases(key: Key, B: int, D: int, device, dtype: torch.dtype, R: int = NMF_RANK
+                ) -> Tensor:
+    """``jax.random.uniform(key, (B, D, R), dtype)`` drawn on `device`."""
+    return uniform_tensor(key, (B, D, R), dtype, device)
+
+
 def nmf_2d(tokens: Tensor, bases: Tensor, steps: int = NMF_EVAL_STEPS) -> Tensor:
     """Evaluation NMF2D of tokens (B, N, D) from raw bases (B, D, R)."""
     return nmf_reconstruct(tokens, bases, steps, NMF_INV_T, NMF_EPS)
+
+
+def nmf_2d_train(tokens: Tensor, bases: Tensor, steps: int = NMF_TRAIN_STEPS) -> Tensor:
+    """Training NMF2D of tokens (B, N, D) from raw bases (B, D, R): the plain
+    version, differentiable, on any device."""
+    coef, bt = nmf_plain(tokens, bases, steps, NMF_INV_T, NMF_EPS)
+    return torch.matmul(coef, bt)
 
 
 class LightHamHead(nn.Module):

@@ -5,12 +5,14 @@
 binaries, and arrays as ext type 1 holding a msgpack ``(shape, dtype,
 bytes)`` triple) with the standard library and numpy. ``params_from_jax``
 maps the Flax tree ``{"params", "batch_stats"}`` onto ``GeoCalibNet``'s
-parameter names, turning HWIO kernels into OIHW.
+parameter names, turning HWIO kernels into OIHW; ``params_to_jax`` maps
+back. Both walk one table of the leaves (``_entries``).
 """
 
+import functools
 import struct
 from pathlib import Path
-from typing import Any, Dict, Union
+from typing import Any, Dict, Iterator, Tuple, Union
 
 import numpy as np
 import torch
@@ -105,92 +107,112 @@ def read_flax_msgpack(path: Union[str, Path]) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------- #
-# Flax parameter tree → GeoCalibNet state_dict
+# Flax parameter tree <-> GeoCalibNet parameters
 # ---------------------------------------------------------------------- #
 
-
-def _tensor(a) -> torch.Tensor:
-    """A writable float32 copy."""
-    return torch.from_numpy(np.array(a, np.float32, order="C"))
-
-
-def _conv(sd: Dict[str, torch.Tensor], name: str, node: Dict[str, Any]) -> None:
-    """A Flax Conv (possibly wrapped in Conv2d_0/ConvModule) → name.weight/.bias."""
-    while "kernel" not in node:
-        (node,) = [v for k, v in node.items() if k.startswith(("Conv2d_", "Conv_"))]
-    sd[f"{name}.weight"] = _tensor(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
-    if "bias" in node:
-        sd[f"{name}.bias"] = _tensor(node["bias"])
+# The Flax modules that wrap an nn.Conv, by the path below them to its leaves.
+_CONV2D = ("Conv_0",)                 # models/modules.Conv2d
+_CONV_MODULE = ("Conv2d_0", "Conv_0")  # ConvModule, DWConv
+_BN = ("BatchNorm_0",)                # models/modules.BatchNorm around nn.BatchNorm
 
 
-def _bn(sd, name: str, params: Dict[str, Any], stats: Dict[str, Any]) -> None:
-    p, s = params["BatchNorm_0"], stats["BatchNorm_0"]
-    sd[f"{name}.weight"] = _tensor(p["scale"])
-    sd[f"{name}.bias"] = _tensor(p["bias"])
-    sd[f"{name}.running_mean"] = _tensor(s["mean"])
-    sd[f"{name}.running_var"] = _tensor(s["var"])
-    sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+def _entries(variant: str) -> Iterator[Tuple[str, str, Tuple[str, ...], str]]:
+    """(port name, Flax collection, path in that collection, kind) of every leaf;
+    kind "kernel" is an HWIO/OIHW convolution kernel, "leaf" anything else."""
 
+    def conv(name, path, wrap, bias=True):
+        yield f"{name}.weight", "params", path + wrap + ("kernel",), "kernel"
+        if bias:
+            yield f"{name}.bias", "params", path + wrap + ("bias",), "leaf"
 
-def _head(sd, name: str, p: Dict[str, Any]) -> None:
-    _conv(sd, f"{name}.squeeze.conv", p["ConvModule_0"])
-    _conv(sd, f"{name}.ham_in.conv", p["Hamburger_0"]["ConvModule_0"])
-    _conv(sd, f"{name}.ham_out.conv", p["Hamburger_0"]["ConvModule_1"])
-    _conv(sd, f"{name}.align.conv", p["ConvModule_1"])
-    _conv(sd, f"{name}.conv_up.conv", p["ConvModule_2"])
-    fusion = p["FeatureFusionBlock_0"]
-    for i in range(2):
-        rcu = fusion[f"ResidualConvUnit_{i}"]
-        _conv(sd, f"{name}.fusion.rcu{i + 1}.conv1", rcu["Conv2d_0"])
-        _conv(sd, f"{name}.fusion.rcu{i + 1}.conv2", rcu["Conv2d_1"])
-    _conv(sd, f"{name}.conv_unc.conv", p["ConvModule_3"])
-    _conv(sd, f"{name}.conf", p["Conv2d_0"])
+    def bn(name, path):
+        yield f"{name}.weight", "params", path + _BN + ("scale",), "leaf"
+        yield f"{name}.bias", "params", path + _BN + ("bias",), "leaf"
+        yield f"{name}.running_mean", "batch_stats", path + _BN + ("mean",), "leaf"
+        yield f"{name}.running_var", "batch_stats", path + _BN + ("var",), "leaf"
 
+    def head(name, path):
+        yield from conv(f"{name}.squeeze.conv", path + ("ConvModule_0",), _CONV_MODULE)
+        ham = path + ("Hamburger_0",)
+        yield from conv(f"{name}.ham_in.conv", ham + ("ConvModule_0",), _CONV_MODULE)
+        yield from conv(f"{name}.ham_out.conv", ham + ("ConvModule_1",), _CONV_MODULE)
+        yield from conv(f"{name}.align.conv", path + ("ConvModule_1",), _CONV_MODULE)
+        yield from conv(f"{name}.conv_up.conv", path + ("ConvModule_2",), _CONV_MODULE, False)
+        for i in range(2):
+            rcu = path + ("FeatureFusionBlock_0", f"ResidualConvUnit_{i}")
+            yield from conv(f"{name}.fusion.rcu{i + 1}.conv1", rcu + ("Conv2d_0",), _CONV2D)
+            yield from conv(f"{name}.fusion.rcu{i + 1}.conv2", rcu + ("Conv2d_1",), _CONV2D)
+        yield from conv(f"{name}.conv_unc.conv", path + ("ConvModule_3",), _CONV_MODULE, False)
+        yield from conv(f"{name}.conf", path + ("Conv2d_0",), _CONV2D)
 
-def params_from_jax(tree: Dict[str, Any], variant: str = "b") -> Dict[str, torch.Tensor]:
-    """GeoCalibNet(variant) state_dict from a Flax tree {"params", "batch_stats"}."""
-    p, bs = tree["params"], tree["batch_stats"]
-    pm, bm = p["MSCAN_0"], bs["MSCAN_0"]
-    sd: Dict[str, torch.Tensor] = {}
-
-    _conv(sd, "backbone.embeds.0.conv1", pm["StemConv_0"]["Conv2d_0"])
-    _bn(sd, "backbone.embeds.0.bn1", pm["StemConv_0"]["BatchNorm_0"], bm["StemConv_0"]["BatchNorm_0"])
-    _conv(sd, "backbone.embeds.0.conv2", pm["StemConv_0"]["Conv2d_1"])
-    _bn(sd, "backbone.embeds.0.bn2", pm["StemConv_0"]["BatchNorm_1"], bm["StemConv_0"]["BatchNorm_1"])
+    m = ("MSCAN_0",)
+    yield from conv("backbone.embeds.0.conv1", m + ("StemConv_0", "Conv2d_0"), _CONV2D)
+    yield from bn("backbone.embeds.0.bn1", m + ("StemConv_0", "BatchNorm_0"))
+    yield from conv("backbone.embeds.0.conv2", m + ("StemConv_0", "Conv2d_1"), _CONV2D)
+    yield from bn("backbone.embeds.0.bn2", m + ("StemConv_0", "BatchNorm_1"))
     dims, _, depths = MSCAN_VARIANTS[variant]
     j = 0
     for i in range(len(dims)):
         if i > 0:
-            pe, be = pm[f"OverlapPatchEmbed_{i - 1}"], bm[f"OverlapPatchEmbed_{i - 1}"]
-            _conv(sd, f"backbone.embeds.{i}.proj", pe["Conv2d_0"])
-            _bn(sd, f"backbone.embeds.{i}.norm", pe["BatchNorm_0"], be["BatchNorm_0"])
+            pe = m + (f"OverlapPatchEmbed_{i - 1}",)
+            yield from conv(f"backbone.embeds.{i}.proj", pe + ("Conv2d_0",), _CONV2D)
+            yield from bn(f"backbone.embeds.{i}.norm", pe + ("BatchNorm_0",))
         for k in range(depths[i]):
-            blk, bst = pm[f"MSCANBlock_{j}"], bm[f"MSCANBlock_{j}"]
-            name = f"backbone.stages.{i}.{k}"
-            _bn(sd, f"{name}.norm1", blk["BatchNorm_0"], bst["BatchNorm_0"])
-            _bn(sd, f"{name}.norm2", blk["BatchNorm_1"], bst["BatchNorm_1"])
-            sa = blk["SpatialAttention_0"]
-            _conv(sd, f"{name}.attn.proj1", sa["Conv2d_0"])
-            _conv(sd, f"{name}.attn.proj2", sa["Conv2d_1"])
-            am = sa["AttentionModule_0"]
-            _conv(sd, f"{name}.attn.gate.conv0", am["Conv2d_0"])
+            blk, name = m + (f"MSCANBlock_{j}",), f"backbone.stages.{i}.{k}"
+            yield from bn(f"{name}.norm1", blk + ("BatchNorm_0",))
+            yield from bn(f"{name}.norm2", blk + ("BatchNorm_1",))
+            sa = blk + ("SpatialAttention_0",)
+            yield from conv(f"{name}.attn.proj1", sa + ("Conv2d_0",), _CONV2D)
+            yield from conv(f"{name}.attn.proj2", sa + ("Conv2d_1",), _CONV2D)
+            am = sa + ("AttentionModule_0",)
+            yield from conv(f"{name}.attn.gate.conv0", am + ("Conv2d_0",), _CONV2D)
             for s in range(6):
-                _conv(sd, f"{name}.attn.gate.strips.{s}", am[f"Conv2d_{s + 1}"])
-            _conv(sd, f"{name}.attn.gate.conv3", am["Conv2d_7"])
-            _conv(sd, f"{name}.mlp.fc1", blk["Mlp_0"]["Conv2d_0"])
-            _conv(sd, f"{name}.mlp.dwconv", blk["Mlp_0"]["DWConv_0"])
-            _conv(sd, f"{name}.mlp.fc2", blk["Mlp_0"]["Conv2d_1"])
+                yield from conv(f"{name}.attn.gate.strips.{s}", am + (f"Conv2d_{s + 1}",), _CONV2D)
+            yield from conv(f"{name}.attn.gate.conv3", am + ("Conv2d_7",), _CONV2D)
+            mlp = blk + ("Mlp_0",)
+            yield from conv(f"{name}.mlp.fc1", mlp + ("Conv2d_0",), _CONV2D)
+            yield from conv(f"{name}.mlp.dwconv", mlp + ("DWConv_0",), _CONV_MODULE)
+            yield from conv(f"{name}.mlp.fc2", mlp + ("Conv2d_1",), _CONV2D)
             for ls in ("layer_scale_1", "layer_scale_2"):
-                sd[f"{name}.{ls}"] = _tensor(blk[ls])
+                yield f"{name}.{ls}", "params", blk + (ls,), "leaf"
             j += 1
-        ln = pm[f"LayerNorm_{i}"]
-        sd[f"backbone.norms.{i}.weight"] = _tensor(ln["scale"])
-        sd[f"backbone.norms.{i}.bias"] = _tensor(ln["bias"])
+        yield f"backbone.norms.{i}.weight", "params", m + (f"LayerNorm_{i}", "scale"), "leaf"
+        yield f"backbone.norms.{i}.bias", "params", m + (f"LayerNorm_{i}", "bias"), "leaf"
 
-    _conv(sd, "low_level.conv1.conv", p["LowLevelEncoder_0"]["ConvModule_0"])
-    _conv(sd, "low_level.conv2.conv", p["LowLevelEncoder_0"]["ConvModule_1"])
-    _head(sd, "up_head", p["UpDecoder_0"]["LightHamHead_0"])
-    _conv(sd, "up_proj", p["UpDecoder_0"]["Conv_0"])
-    _head(sd, "lat_head", p["LatitudeDecoder_0"]["LightHamHead_0"])
-    _conv(sd, "lat_proj", p["LatitudeDecoder_0"]["Conv_0"])
+    lle = ("LowLevelEncoder_0",)
+    yield from conv("low_level.conv1.conv", lle + ("ConvModule_0",), _CONV_MODULE)
+    yield from conv("low_level.conv2.conv", lle + ("ConvModule_1",), _CONV_MODULE)
+    yield from head("up_head", ("UpDecoder_0", "LightHamHead_0"))
+    yield from conv("up_proj", ("UpDecoder_0", "Conv_0"), ())
+    yield from head("lat_head", ("LatitudeDecoder_0", "LightHamHead_0"))
+    yield from conv("lat_proj", ("LatitudeDecoder_0", "Conv_0"), ())
+
+
+def params_from_jax(tree: Dict[str, Any], variant: str = "b") -> Dict[str, torch.Tensor]:
+    """GeoCalibNet(variant) state_dict from a Flax tree {"params", "batch_stats"}:
+    float32 copies, HWIO kernels turned into OIHW."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, coll, path, kind in _entries(variant):
+        a = np.asarray(functools.reduce(lambda node, k: node[k], path, tree[coll]))
+        sd[name] = torch.from_numpy(np.array(a.transpose(3, 2, 0, 1) if kind == "kernel" else a,
+                                             np.float32, order="C"))
+        if name.endswith(".running_var"):
+            sd[name[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def params_to_jax(named: Dict[str, torch.Tensor], variant: str = "b") -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: the Flax-named numpy tree
+    {"params", "batch_stats"} of the entries of ``named`` (parameters, their
+    gradients or the running statistics, by GeoCalibNet name), OIHW kernels
+    turned into HWIO. Names it does not hold are left out of the tree."""
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for name, coll, path, kind in _entries(variant):
+        if name not in named:
+            continue
+        a = named[name].detach().float().cpu().numpy()
+        node = tree[coll]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(a.transpose(2, 3, 1, 0) if kind == "kernel" else a)
+    return tree

@@ -1,11 +1,13 @@
 """LM normal equations G, H and the mean cost in one pass over the pixels.
 
-Port of geocalib_tpu/ops/lm_kernel.py (``lm_system_pallas``). ``lm_system``
-launches the CUDA kernel of ``csrc/lm_system.cu`` (one launch per call, one
-thread-block cluster per lane, no scratch tensor) for CUDA tensors and calls
-``lm_system_plain``, the same math in plain PyTorch on (B, N) planes, for CPU
-tensors. Forward only: the kernel has no backward yet, so on CUDA tensors
-``lm_system`` refuses inputs that require grad while grad is enabled.
+Port of geocalib_tpu/ops/lm_kernel.py (``lm_system_pallas`` and its
+``custom_vjp``). ``lm_system`` launches the CUDA kernel of
+``csrc/lm_system.cu`` (one launch per call, one thread-block cluster per
+lane, no scratch tensor) for CUDA tensors and calls ``lm_system_plain``, the
+same math in plain PyTorch on (B, N) planes, for CPU tensors. Its backward
+(``LMSystemFunction``) mirrors the JAX ``_bwd``: it differentiates the plain
+version, recomputed on detached copies of the inputs, against the
+cotangents of (G, H, cost).
 """
 
 import ctypes
@@ -16,7 +18,7 @@ import torch
 from geocalib_tpu_torch.geometry import planar_fields as pf
 from geocalib_tpu_torch.geometry.camera import Camera
 from geocalib_tpu_torch.geometry.gravity import Gravity
-from geocalib_tpu_torch.ops import build, refuse_autograd
+from geocalib_tpu_torch.ops import build
 from geocalib_tpu_torch.optim.losses import get_loss_fn, scaled_loss
 
 Tensor = torch.Tensor
@@ -82,11 +84,13 @@ def lm_system(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, 
     """G (B, P), H (B, P, P) and the mean cost (B,) at the current estimate.
 
     obs: any of ``OBS_KEYS``, each (B, N = h*w) float32. CPU tensors go to
-    ``lm_system_plain``; CUDA tensors launch the kernel or raise.
+    ``lm_system_plain``; CUDA tensors launch the kernel or raise. Differentiable
+    in the planes, the camera and the gravity on both (``LMSystemFunction``).
     """
     dev = camera.f.device
     if dev.type == "cpu":
-        return lm_system_plain(obs, camera, gravity, h, w, cfg, spherical, log_focal)
+        spherical, log_focal = _options(cfg, spherical, log_focal)
+        return _apply(obs, camera, gravity, h, w, cfg, spherical, log_focal)
     if dev.type != "cuda":
         raise ValueError(f"lm_system runs on CPU or CUDA tensors, not {dev}")
     spherical, log_focal = _options(cfg, spherical, log_focal)
@@ -106,12 +110,57 @@ def lm_system(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, 
             raise ValueError(f"{key} must be contiguous")
     if ("up_x" in obs) != ("up_y" in obs):
         raise ValueError("up_x and up_y come together")
-    refuse_autograd("lm_system", *obs.values(), camera.data, gravity.vec3d)
+    return _apply(obs, camera, gravity, h, w, cfg, spherical, log_focal)
 
-    cam = camera.data.to(torch.float32).contiguous()
-    grav = gravity.vec3d.to(torch.float32).contiguous()
-    M = pf.manifold_matrix(gravity, spherical).to(torch.float32).reshape(B, 6).contiguous()
-    return launch(obs, cam, grav, M, camera.model, w, cfg, log_focal)
+
+def _apply(obs, camera: Camera, gravity: Gravity, h: int, w: int, cfg, spherical: bool,
+           log_focal: bool) -> Tuple[Tensor, Tensor, Tensor]:
+    keys = tuple(obs)
+    spec = (keys, camera.model, h, w, cfg, spherical, log_focal)
+    return LMSystemFunction.apply(spec, camera.data, gravity.vec3d, *(obs[k] for k in keys))
+
+
+class LMSystemFunction(torch.autograd.Function):
+    """(G, H, cost) with the VJP of ``lm_system_pallas`` (lm_kernel.py:221-249).
+
+    Forward: the kernel for CUDA tensors, ``lm_system_plain`` for CPU tensors,
+    with no graph. Backward: ``lm_system_plain`` recomputed under grad on
+    detached copies of the planes, the packed camera and the gravity vector,
+    and ``torch.autograd.grad`` of (G, H, cost) against their cotangents, for
+    the inputs that need a gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, spec, cam_data: Tensor, vec3d: Tensor, *planes: Tensor):
+        keys, model, h, w, cfg, spherical, log_focal = spec
+        ctx.spec = spec
+        ctx.save_for_backward(cam_data, vec3d, *planes)
+        obs = dict(zip(keys, planes))
+        camera, gravity = Camera.from_data(cam_data, model), Gravity(vec3d)
+        if cam_data.device.type == "cpu":
+            return lm_system_plain(obs, camera, gravity, h, w, cfg, spherical, log_focal)
+        B = cam_data.shape[0]
+        cam = cam_data.to(torch.float32).contiguous()
+        grav = vec3d.to(torch.float32).contiguous()
+        M = pf.manifold_matrix(gravity, spherical).to(torch.float32).reshape(B, 6).contiguous()
+        return launch(obs, cam, grav, M, model, w, cfg, log_focal)
+
+    @staticmethod
+    def backward(ctx, gG: Tensor, gH: Tensor, gcost: Tensor):
+        keys, model, h, w, cfg, spherical, log_focal = ctx.spec
+        needs = ctx.needs_input_grad[1:]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(())
+        if wanted:
+            with torch.enable_grad():
+                cam_data, vec3d, *planes = inputs
+                out = lm_system_plain(dict(zip(keys, planes)), Camera.from_data(cam_data, model),
+                                      Gravity(vec3d), h, w, cfg, spherical, log_focal)
+                grads = iter(torch.autograd.grad(out, wanted, (gG, gH, gcost),
+                                                 allow_unused=True))
+        lm_system.vjp_calls += 1
+        return (None, *(next(grads) if n else None for n in needs))
 
 
 def launch(obs: Dict[str, Tensor], cam: Tensor, grav: Tensor, M: Tensor, model: str, w: int,
@@ -147,3 +196,4 @@ def kernel_config(w: int) -> Dict[str, int]:
 
 lm_system.launches = 0
 lm_system.launches_by_model = dict.fromkeys(MODEL_IDS, 0)
+lm_system.vjp_calls = 0  # backward passes of LMSystemFunction (no kernel launch)

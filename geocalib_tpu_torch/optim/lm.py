@@ -11,9 +11,11 @@ previous iteration, so the λ and convergence bookkeeping is deferred by one
 iteration exactly as in the JAX solver.
 
 All four camera models, the trivial and heuristic inits and shared
-intrinsics are ported. Not ported yet (asking for it raises
-NotImplementedError): the backward paths (``grad_mode="ift"``; the kernel
-has no VJP).
+intrinsics are ported, and both ways gradients flow through the solver
+(``grad_mode``): "unroll" differentiates every iteration, each system
+through the VJP of ``ops.lm_system``; "ift" runs the loop on detached
+observations and attaches implicit-function-theorem gradients at the fixed
+point (``IFTTheta``, the mirror of the JAX ``_ift_theta``).
 """
 
 import dataclasses
@@ -25,7 +27,7 @@ import torch
 from geocalib_tpu_torch.geometry.camera import NUM_DIST_PARAMS, Camera
 from geocalib_tpu_torch.geometry.gravity import Gravity
 from geocalib_tpu_torch.geometry.jacobians import J_focal2fov
-from geocalib_tpu_torch.ops.lm_system import lm_system
+from geocalib_tpu_torch.ops.lm_system import lm_system, lm_system_plain
 from geocalib_tpu_torch.optim import linalg
 from geocalib_tpu_torch.utils.conversions import focal2fov
 
@@ -56,15 +58,15 @@ class LMConfig:
     estimate_focal: bool = True
     estimate_dist: bool = True
     with_uncertainty: bool = True
-    grad_mode: str = "unroll"
+    grad_mode: str = "unroll"  # "unroll" | "ift"
 
     def __post_init__(self):
         if self.camera_model not in NUM_DIST_PARAMS:
             raise ValueError(f"Unknown camera model {self.camera_model!r}")
         if self.init_mode not in ("trivial", "heuristic"):
             raise ValueError(f"Unknown init_mode {self.init_mode!r}")
-        if self.grad_mode != "unroll":
-            raise NotImplementedError(f"grad_mode {self.grad_mode!r} is not ported yet")
+        if self.grad_mode not in ("unroll", "ift"):
+            raise ValueError(f"Unknown grad_mode {self.grad_mode!r}")
 
     @property
     def num_dist(self) -> int:
@@ -247,7 +249,32 @@ def optimize(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, w
     With shared intrinsics, λ, the convergence test and stop_at are one lane
     for the whole batch, on the batch-mean cost; λ stays at its initial value
     (the reference freezes it in that mode), and no lane is frozen alone.
+    With ``grad_mode="ift"`` the loop sees detached observations, and a zero
+    step from ``IFTTheta`` carries the gradients of the fixed point.
     """
+    if cfg.grad_mode == "ift":
+        loop_obs = {k: v.detach() for k, v in obs.items()}
+        camera, gravity, info = _optimize_loop(loop_obs, camera, gravity, h, w, cfg)
+        keys = tuple(obs)
+        theta = IFTTheta.apply((keys, camera.model, h, w, cfg), camera.data, gravity.vec3d,
+                               *(obs[k] for k in keys))
+        camera, gravity = _update_estimate(camera, gravity, theta, cfg)
+    else:
+        camera, gravity, info = _optimize_loop(obs, camera, gravity, h, w, cfg)
+
+    # final cost, and H in (roll, pitch, focal) space for the uncertainty
+    _, H_rpf, final_cost = lm_system(obs, camera, gravity, h, w, cfg,
+                                     spherical=False, log_focal=False)
+    info["final_cost"] = final_cost
+    if cfg.with_uncertainty:
+        info.update(estimate_uncertainty(camera, H_rpf, cfg))
+    return camera, gravity, info
+
+
+def _optimize_loop(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, w: int,
+                   cfg: LMConfig) -> Tuple[Camera, Gravity, Dict[str, Tensor]]:
+    """The fixed-length loop with per-lane freezing: the estimate, the initial
+    cost and stop_at."""
     B = camera.f.shape[0]
     dev = camera.f.device
     shared = cfg.shared_intrinsics
@@ -282,14 +309,44 @@ def optimize(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, w
                 (new_camera.size, new_camera.f, new_camera.c, new_camera.k))), camera.model)
             new_gravity = Gravity(_select(converged, gravity.vec3d, new_gravity.vec3d))
         camera, gravity, prev_cost = new_camera, new_gravity, cost
+    return camera, gravity, {"initial_cost": initial_cost, "stop_at": stop_at.expand(B)}
 
-    # final cost, and H in (roll, pitch, focal) space for the uncertainty
-    _, H_rpf, final_cost = lm_system(obs, camera, gravity, h, w, cfg,
-                                     spherical=False, log_focal=False)
-    info = {"initial_cost": initial_cost, "stop_at": stop_at.expand(B), "final_cost": final_cost}
-    if cfg.with_uncertainty:
-        info.update(estimate_uncertainty(camera, H_rpf, cfg))
-    return camera, gravity, info
+
+class IFTTheta(torch.autograd.Function):
+    """A zero step (B, P) that carries the implicit-function-theorem gradients
+    dθ*/d obs at the converged estimate (the JAX ``_ift_theta``, optim/lm.py:611-667).
+
+    Forward: zeros, so applying it with ``_update_estimate`` leaves the estimate
+    as it is. Backward, the mirror of ``_ift_bwd``: H from ``lm_system_plain``
+    at the solution (the loop's spherical/log-focal system), w = the damped
+    solve of H w = ct with λ = 0, then the VJP of G with respect to the
+    observations at θ = 0, against w. The camera and the gravity get no
+    gradient through this step.
+    """
+
+    @staticmethod
+    def forward(ctx, spec, cam_data: Tensor, vec3d: Tensor, *planes: Tensor) -> Tensor:
+        ctx.spec = spec
+        ctx.save_for_backward(cam_data, vec3d, *planes)
+        cfg = spec[-1]
+        return cam_data.new_zeros((cam_data.shape[0], cfg.num_params))
+
+    @staticmethod
+    def backward(ctx, ct: Tensor):
+        keys, model, h, w, cfg = ctx.spec
+        cam_data, vec3d, *planes = ctx.saved_tensors
+        camera, gravity = Camera.from_data(cam_data, model), Gravity(vec3d)
+        B = cam_data.shape[0]
+        _, H, _ = lm_system_plain(dict(zip(keys, planes)), camera, gravity, h, w, cfg)
+        lamb = H.new_zeros((1 if cfg.shared_intrinsics else B,))
+        wvec = _solve_damped(ct, H, lamb, cfg)
+        theta0 = H.new_zeros((B, cfg.num_params))
+        camera, gravity = _update_estimate(camera, gravity, theta0, cfg)
+        obs = {k: t.detach().requires_grad_() for k, t in zip(keys, planes)}
+        with torch.enable_grad():
+            G, _, _ = lm_system_plain(obs, camera, gravity, h, w, cfg)
+            grads = torch.autograd.grad(G, list(obs.values()), wvec, allow_unused=True)
+        return (None, None, None, *grads)
 
 
 def estimate_uncertainty(camera: Camera, H: Tensor, cfg: LMConfig) -> Dict[str, Tensor]:

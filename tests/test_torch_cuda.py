@@ -9,7 +9,9 @@ repository's conftest (which configures JAX):
 
 Tolerances: the LM sums are taken in another order (rtol 1e-4 against the
 largest entry); the NMF in float32 agrees to 1e-4 relative Frobenius error,
-and in bf16, where every product rounds to 8 bits, to 2e-2.
+and in bf16, where every product rounds to 8 bits, to 2e-2. The LM kernel's
+VJP differentiates the plain version recomputed on the same inputs, so its
+gradients equal autograd's through the plain version to 1e-6 relative.
 """
 
 import numpy as np
@@ -244,30 +246,75 @@ def test_nmf_kernel_takes_unaligned_tensors(card, dtype, bound):
 
 
 def test_kernels_refuse_autograd(card):
-    """The kernels have no backward: under grad, an input that requires grad is refused
+    """The NMF kernel has no backward: under grad, an input that requires grad is refused
     (not routed to the plain version); under no_grad the same call launches."""
-    obs, cam, grav = _lm_inputs("pinhole", 2, 16, 16, card)
-    cfg = LMConfig()
     rng = np.random.default_rng(6)
     x = torch.from_numpy(np.maximum(rng.normal(size=(1, 64, 32)), 0)).to(card, torch.bfloat16)
     bases = torch.from_numpy(rng.uniform(size=(1, 32, 8))).to(card, torch.bfloat16)
-    cam_grad = Camera.from_data(cam.data.clone().requires_grad_(), "pinhole")
-    grav_grad = Gravity(grav.vec3d.clone().requires_grad_())
-    obs_grad = dict(obs, up_x=obs["up_x"].clone().requires_grad_())
     with torch.enable_grad():
-        for args in [(obs_grad, cam, grav), (obs, cam_grad, grav), (obs, cam, grav_grad)]:
-            with pytest.raises(RuntimeError, match="no backward"):
-                lm_system(*args, 16, 16, cfg)
         for xs, bs in [(x.clone().requires_grad_(), bases), (x, bases.clone().requires_grad_())]:
             with pytest.raises(RuntimeError, match="no backward"):
                 nmf(xs, bs, 2)
-        lm_system(obs, cam, grav, 16, 16, cfg)  # nothing requires grad
     with torch.no_grad():
-        before = (lm_system.launches, nmf.launches)
-        for args in [(obs_grad, cam, grav), (obs, cam_grad, grav), (obs, cam, grav_grad)]:
-            lm_system(*args, 16, 16, cfg)
+        before = nmf.launches
         nmf(x.clone().requires_grad_(), bases.clone().requires_grad_(), 2)
-        assert (lm_system.launches, nmf.launches) == (before[0] + 3, before[1] + 1)
+        assert nmf.launches == before + 1
+
+
+@pytest.mark.parametrize("model", MODELS)
+# request a's planes (16 lanes of a 320x416 crop) and one lane of them (requests b, c)
+@pytest.mark.parametrize("B", [16, 1])
+def test_lm_kernel_vjp_matches_plain(card, model, B):
+    """lm_system on CUDA tensors that require grad launches the kernel once and takes the
+    VJP of the plain version: the planes', camera's and gravity's gradients for seeded
+    cotangents of G, H and cost equal those of autograd through lm_system_plain."""
+    obs, cam, grav = _lm_inputs(model, 16, 320, 416, card)
+    obs = {k: v[:B].contiguous() for k, v in obs.items()}
+    cam = Camera.from_data(cam.data[:B], model)
+    grav = Gravity(grav.vec3d[:B] + 0.05)  # off the trivial estimate: every term is exercised
+    cfg = LMConfig(camera_model=model)
+    rng = np.random.default_rng(7)
+    P = cfg.num_params
+    cts = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(card)
+           for s in ((B, P), (B, P, P), (B,))]
+    grads = []
+    for fn in (lm_system, lm_system_plain):
+        leaves = [t.clone().contiguous().requires_grad_() for t in (cam.data, grav.vec3d,
+                                                                     *obs.values())]
+        before = lm_system.launches
+        with torch.enable_grad():
+            out = fn(dict(zip(obs, leaves[2:])), Camera.from_data(leaves[0], model),
+                     Gravity(leaves[1]), 320, 416, cfg)
+            grads.append(torch.autograd.grad(out, leaves, cts))
+        assert lm_system.launches == before + (fn is lm_system)
+    for name, a, b in zip(["camera", "gravity", *obs], *grads):
+        assert bool(torch.isfinite(a).all()) and b.abs().max() > 0, name
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * b.abs().max().item(), msg=name)
+
+
+@pytest.mark.parametrize("mode", ["ift", "unroll"])
+def test_train_step_runs_on_the_card(card, mode):
+    """One tiny-variant train_step on CUDA tensors (bf16 network, drop path 0.1): finite
+    loss, gradients and scalars, the LM kernel launched, and the parameters moved."""
+    from geocalib_tpu_torch.training.train_step import (TrainConfig, compute_grads,
+                                                        create_train_state, train_step)
+
+    cfg = TrainConfig(variant="tiny", lm_steps=3, lm_grad_mode=mode)
+    net, state = create_train_state(cfg, seed=0, device=card)
+    rng = np.random.default_rng(0)
+    B, S = 2, 64
+    batch = {"image": torch.from_numpy(rng.uniform(size=(B, S, S, 3)).astype(np.float32)).to(card),
+             "gt_params": torch.tensor([[S, S, 0.9, 0.1, -0.2, 0, 0], [S, S, 1.1, -0.1, 0.1, 0, 0]],
+                                       dtype=torch.float32, device=card)}
+    before = lm_system.launches
+    loss, grads, _, _, _ = compute_grads(net, cfg, state, batch, (0, 7))
+    assert lm_system.launches - before == cfg.lm_steps + 1
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads.values())
+    new, scalars = train_step(net, cfg, state, batch, (0, 7))
+    assert all(bool(torch.isfinite(v)) for v in scalars.values())
+    assert float(scalars["skipped_nonfinite"]) == 0.0
+    moved = [not torch.equal(new.params[k], state.params[k]) for k in state.params]
+    assert sum(moved) >= 0.9 * len(moved)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -205,9 +205,13 @@ def test_heuristic_init_matches_jax(case):
     np.testing.assert_allclose(tgrav.vec3d.numpy(), np.asarray(jgrav.vec3d), rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("opts", [{"grad_mode": "ift"}])
+@pytest.mark.parametrize("opts", [{"grad_mode": "implicit"}])
 def test_unported_options_raise(opts):
-    with pytest.raises(NotImplementedError):
+    """Every grad_mode of the JAX package is ported ("unroll", "ift"); a mode it
+    does not have is refused."""
+    for mode in ("unroll", "ift"):
+        assert LMConfig(grad_mode=mode).grad_mode == mode
+    with pytest.raises(ValueError):
         LMConfig(**opts)
 
 
