@@ -27,6 +27,25 @@ lane) and serving (early stop on, as users run it: lanes that stop at the
 same iteration within 0.05 degrees of roll, pitch and vFoV; lanes that stop
 apart must be one iteration apart, and are named).
 
+Then the eval phase, a path of its own (the port's eval/pipeline.py): 64
+rendered 320x320 views with their true roll, pitch and vFoV as gt_params,
+held in memory behind SimpleDataset's epoch() (the card's machine has no PIL
+or h5py), through SimplePipeline at batch 8, pinhole and then simple_radial
+(GT k1 = 0, so the pixel projection metrics run), and 12 views of two sizes
+(480x640, 640x480) preprocessed by the port's ImagePreprocessor into two
+aspect buckets with padded tail lanes, behind BenchmarkDataset's batches(),
+through BenchmarkPipeline. Each run's counts are set to 0 around it: every
+batch must launch the NMF kernel once and the LM kernel's instance of its
+camera model 31 times, and the padded lanes must be dropped. The pipeline's
+first batch must equal GeoCalib.calibrate on the same views within 1e-4
+degrees with equal stop_at; roll_error must equal the error computed here
+from the rendered truth within 1e-4 degrees, and the median roll error lie
+within ROLL_TOL. Each kernel is held against its plain version, and timed,
+at the eval batch's shapes; the per-image deviations of the kernels against
+the plain versions are reported (not judged: the whole-path gate judges
+both kernels), with images per second at batch 8 and 16 and the host's
+share of a batch.
+
 Then the train phase, a path of its own: from the same weights (parameters
 and BatchNorm statistics), MSCAN-B, bf16 network, drop path 0.1, batch 24 of
 rendered 320x320 views, 3 train_steps with IFT gradients through the LM and
@@ -70,6 +89,7 @@ import torch
 
 import geocalib_tpu_torch
 from geocalib_tpu_torch.data.dataset import synthesize_gt_fields
+from geocalib_tpu_torch.eval import pipeline as eval_lib
 from geocalib_tpu_torch.geometry import planar_fields as pf
 from geocalib_tpu_torch.training import train_step as train_lib
 from geocalib_tpu_torch.models import hamburger
@@ -80,6 +100,8 @@ from geocalib_tpu_torch.geometry.camera import Camera
 from geocalib_tpu_torch.geometry.gravity import Gravity
 from geocalib_tpu_torch.optim.lm import (LMConfig, flatten_observations, get_heuristic_estimation,
                                          get_trivial_estimation, resolve_priors)
+from geocalib_tpu_torch.utils.image import ImagePreprocessor
+from geocalib_tpu_torch.utils.tools import summarize_results
 
 ROOT = Path(__file__).resolve().parent
 WEIGHTS = ROOT / "weights" / "geocalib_synth_r05.msgpack"
@@ -114,6 +136,11 @@ TRAIN_LOSS_TOL = 1e-4  # relative, each loss term, kernels against plain version
 TRAIN_NORM_TOL = 1e-3  # relative, the gradient's global norm
 TRAIN_LEAF_TOL = 1e-2  # relative L2, each gradient leaf over TRAIN_LEAF_SHARE of the norm
 TRAIN_LEAF_SHARE = 1e-6
+EVAL_VIEWS, EVAL_SIZE, EVAL_BATCH = 64, 320, 8  # the eval phase's SimplePipeline runs
+EVAL_SPEED_BATCHES = (8, 16)  # batch sizes timed through SimplePipeline
+EVAL_BUCKETS = {"landscape": (7, 480, 640), "portrait": (5, 640, 480)}  # views, h, w
+EVAL_BUCKET_BATCH = 4  # each bucket ends in a padded tail batch
+EVAL_TOL = 1e-4  # degrees: the pipeline against calibrate, and roll_error against the truth
 
 
 def card_name() -> str:
@@ -133,6 +160,22 @@ def check(ok: bool, message: str) -> None:
         raise RuntimeError(message)
 
 
+def view_rays(h: int, w: int, roll: float, pitch: float, vfov: float, k1: float = 0.0
+              ) -> np.ndarray:
+    """World rays (h, w, 3) through the pixel centers of a camera with this roll, pitch
+    (radians) and vFoV, y pointing down: the camera's rays rotated by Rx(pitch) Rz(roll).
+    With k1 the lens follows the division model (see scenes)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    f = h / 2 / math.tan(vfov / 2)
+    p = np.stack([(xx + 0.5 - w / 2) / f, (yy + 0.5 - h / 2) / f], -1)
+    p = p / (1.0 + k1 * (p * p).sum(-1, keepdims=True))
+    rays = np.concatenate([p, np.ones_like(xx)[..., None]], -1)
+    cr, sr, cp, sp = math.cos(roll), math.sin(roll), math.cos(pitch), math.sin(pitch)
+    rot = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]) @ np.array(
+        [[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]])
+    return rays @ rot.T
+
+
 def scenes(rng: np.random.Generator, n: int, h: int, w: int, vfov: float = None,
            k1: float = 0.0):
     """Rendered views of a checkered ground plane under a sky, with fog.
@@ -143,20 +186,12 @@ def scenes(rng: np.random.Generator, n: int, h: int, w: int, vfov: float = None,
     model: a pixel's normalised coordinate p maps to the ray (p / (1 + k1 |p|²), 1).
     Returns the images and the (roll, pitch, vfov) of each view in degrees.
     """
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
     images = np.empty((n, h, w, 3), np.float32)
     truth = []
     for i in range(n):
         roll, pitch = rng.uniform(-0.3, 0.3, 2)
         fov = rng.uniform(0.7, 1.3) if vfov is None else vfov
-        f = h / 2 / math.tan(fov / 2)
-        p = np.stack([(xx + 0.5 - w / 2) / f, (yy + 0.5 - h / 2) / f], -1)
-        p = p / (1.0 + k1 * (p * p).sum(-1, keepdims=True))
-        rays = np.concatenate([p, np.ones_like(xx)[..., None]], -1)
-        cr, sr, cp, sp = math.cos(roll), math.sin(roll), math.cos(pitch), math.sin(pitch)
-        rot = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]) @ np.array(
-            [[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]])
-        world = rays @ rot.T  # y points down; the ground is the plane y = 1.5
+        world = view_rays(h, w, roll, pitch, fov, k1)  # the ground is the plane y = 1.5
         down = world[..., 1] > 1e-6
         t = np.where(down, 1.5 / np.where(down, world[..., 1], 1.0), 0.0)
         tiles = (np.floor(t * world[..., 0] / 2) + np.floor(t * world[..., 2] / 2)) % 2
@@ -565,6 +600,227 @@ def smoke_requests(calib, calib_h) -> Tuple[dict, dict]:
     return requests, {"a": truth, "d": truth_d, "e": truth_e}
 
 
+# ---------------------------------------------------------------- eval phase
+
+class RenderedViews:
+    """Rendered views held in memory behind SimpleDataset's epoch(): batches of
+    "image" and "gt_params" rows (w, h, vfov, roll, pitch, k1 = 0, k2 = 0), radians."""
+
+    def __init__(self, images: np.ndarray, truth: list, batch_size: int):
+        h, w = images.shape[1:3]
+        self.images = torch.from_numpy(images)
+        self.gt_params = torch.tensor([[w, h, math.radians(fov), math.radians(roll),
+                                        math.radians(pitch), 0.0, 0.0]
+                                       for roll, pitch, fov in truth], dtype=torch.float32)
+        self.batch_size = batch_size
+
+    def epoch(self, epoch: int = 0):
+        B = self.batch_size
+        for start in range(0, len(self.images) - B + 1, B):
+            yield {"image": self.images[start:start + B],
+                   "gt_params": self.gt_params[start:start + B]}
+
+
+class RenderedBuckets:
+    """Rendered views of other sizes behind BenchmarkDataset's batches(): each view
+    preprocessed by the port's ImagePreprocessor, one bucket per original size, each
+    bucket's tail padded by repeating its last view with valid False; the GT camera
+    in original pixels (principal point at the center of the pixel grid)."""
+
+    def __init__(self, rng: np.random.Generator, batch_size: int):
+        self.batch_size, self.buckets, self.truth = batch_size, [], []
+        pre = ImagePreprocessor()
+        for name, (n, h, w) in EVAL_BUCKETS.items():
+            images, truth = scenes(rng, n, h, w)
+            views = []
+            for i, (img, (roll, pitch, fov)) in enumerate(zip(images, truth)):
+                f = h / 2 / math.tan(math.radians(fov) / 2)
+                views.append({**pre(img), "name": f"{name}_{i}", "gt_cam": torch.tensor(
+                    [w, h, f, f, w / 2 - 0.5, h / 2 - 0.5, 0.0, 0.0], dtype=torch.float32),
+                    "gt_rp": torch.tensor([math.radians(roll), math.radians(pitch)])})
+            self.buckets.append(views)
+            self.truth += truth
+
+    def batches(self):
+        B = self.batch_size
+        for views in self.buckets:
+            for start in range(0, len(views), B):
+                chunk = views[start:start + B]
+                valid = np.arange(B) < len(chunk)
+                chunk = chunk + [chunk[-1]] * (B - len(chunk))
+                stack = lambda k: torch.stack([v[k] for v in chunk])
+                yield {"image": stack("image"), "scales": stack("scales"),
+                       "crop_pad": stack("crop_pad"), "gt_cam": stack("gt_cam"),
+                       "gt_rp": stack("gt_rp"), "valid": valid, "names": [v["name"] for v in chunk]}
+
+
+def counted_eval(label: str, pipe, data, model: str, batches: int) -> dict:
+    """One eval run as a path of its own: the counts are set to 0 just before it and
+    read just after; each batch must launch the NMF kernel once and the LM kernel's
+    instance of `model` 31 times (30 iterations and the final cost)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, names, _ = pipe.evaluate(data)
+    seconds = time.perf_counter() - t0
+    counts = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches,
+              "lm_system_by_model": {k: n for k, n in lm_ops.lm_system.launches_by_model.items()
+                                     if n}}
+    per_batch = pipe.lm_config.num_steps + 1
+    log(f"eval {label}: {len(names)} images in {batches} batches, {seconds:.2f} s; launches "
+        f"{json.dumps(counts)}")
+    check(counts["nmf"] == batches and counts["lm_system_by_model"] == {model: per_batch * batches},
+          f"eval {label}: each batch must launch the NMF kernel once and the {model} LM kernel "
+          f"{per_batch} times: {counts}")
+    for k, v in results.items():
+        check(bool(np.isfinite(v).all()), f"eval {label}: {k} is not finite")
+    summaries = summarize_results(results)
+    log(f"eval {label}: median roll/pitch/vfov error {summaries['median_roll_error']} / "
+        f"{summaries['median_pitch_error']} / {summaries['median_vfov_error']} deg; AUC@1/5/10 roll "
+        f"{[summaries[f'auc_roll_error@{t}'] for t in (1, 5, 10)]} pitch "
+        f"{[summaries[f'auc_pitch_error@{t}'] for t in (1, 5, 10)]} vfov "
+        f"{[summaries[f'auc_vfov_error@{t}'] for t in (1, 5, 10)]}")
+    return {"results": results, "names": names, "counts": counts, "summaries": summaries,
+            "seconds": seconds}
+
+
+def read_roll(roll: np.ndarray, pitch: np.ndarray) -> np.ndarray:
+    """The roll (radians) that Gravity.roll reads from the gravity vector of this roll
+    and pitch, in float64: asin(-x / (sqrt(1 - z^2) + 1e-4)) of
+    (x, z) = (-sin r cos p, sin p), whose 1e-4 shrinks a roll r by about 1e-4 tan r."""
+    x, z = -np.sin(roll) * np.cos(pitch), np.sin(pitch)
+    return np.arcsin(np.clip(-x / (np.sqrt(1.0 - z * z) + 1e-4), -1.0, 1.0))
+
+
+def roll_checks(label: str, results: dict, truth: list) -> float:
+    """roll_error against |roll - truth| computed here, with the truth's roll as
+    Gravity.roll reads it, and the median roll error against ROLL_TOL; returns the
+    largest difference from the hand-computed error."""
+    truth = np.radians(np.asarray(truth, np.float64))
+    wrap = lambda d: np.abs((d + 180.0) % 360.0 - 180.0)
+    roll = results["roll"].astype(np.float64)
+    by_hand = wrap(roll - np.degrees(read_roll(truth[:, 0], truth[:, 1])))
+    dev = float(np.abs(results["roll_error"] - by_hand).max())
+    raw = float(np.abs(results["roll_error"] - wrap(roll - np.degrees(truth[:, 0]))).max())
+    median = float(np.median(results["roll_error"]))
+    log(f"eval {label}: roll_error against |roll - truth| computed by hand: largest difference "
+        f"{dev:.3e} deg (bound {EVAL_TOL}; {raw:.3e} against the rendered roll itself, which "
+        f"Gravity.roll's 1e-4 moves); median roll error {median:.3f} deg (bound {ROLL_TOL})")
+    check(dev <= EVAL_TOL, f"eval {label}: roll_error is not |roll - truth| ({dev:.3e} deg)")
+    check(median <= ROLL_TOL, f"eval {label}: median roll error {median:.3f} deg > {ROLL_TOL}")
+    return dev
+
+
+def eval_speed(pipe, images: np.ndarray, truth: list) -> dict:
+    """Images per second through SimplePipeline at each batch size of EVAL_SPEED_BATCHES
+    (after a warm batch; wall time, which ends in the copy of the metrics to the host),
+    and the host's share of one batch: its wall time less its device-kernel time from
+    torch.profiler, over its wall time."""
+    out = {}
+    for B in EVAL_SPEED_BATCHES:
+        views = RenderedViews(images, truth, B)
+        batch = next(views.epoch())
+        one_batch = lambda: eval_lib.to_host(pipe.predict(batch)[0])
+        one_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.evaluate(views)
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one_batch()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        lm_ms, device_ms = device_time_by_kernel(one_batch)
+        out[B] = {"images_per_s": len(images) / seconds, "batch_ms": batch_ms,
+                  "device_ms": device_ms, "lm_kernel_ms": lm_ms,
+                  "host_share": (batch_ms - device_ms) / batch_ms}
+        log(f"eval speed, SimplePipeline batch {B}: {out[B]['images_per_s']:.1f} images/s "
+            f"({len(images)} images in {seconds:.3f} s); one batch {batch_ms:.1f} ms wall, "
+            f"{device_ms:.1f} ms of device kernels (LM kernel {lm_ms:.3f} ms), host share "
+            f"{out[B]['host_share']:.3f}")
+    return out
+
+
+def eval_phase(weights: dict, calib, card: str) -> dict:
+    """The eval path on rendered views at MSCAN-B, bf16: SimplePipeline (pinhole, then
+    simple_radial) and BenchmarkPipeline (two aspect buckets with padded tails), each
+    run with its launch counts; the pipeline against calibrate, roll_error against the
+    truth, the kernels against the plain versions (reported), and images per second."""
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    log(f"eval: numpy {np.__version__} (np.trapezoid needs 2.0 or later)")
+    images, truth = scenes(np.random.default_rng(4), EVAL_VIEWS, EVAL_SIZE, EVAL_SIZE)
+    views = RenderedViews(images, truth, EVAL_BATCH)
+    conf = lambda model: eval_lib.EvalConf(camera_model=model, batch_size=EVAL_BATCH)
+    pipes = {m: eval_lib.SimplePipeline(weights, conf(m)) for m in ("pinhole", "simple_radial")}
+    check(pipes["pinhole"].device.type == "cuda", f"SimplePipeline chose {pipes['pinhole'].device}")
+    bench = RenderedBuckets(np.random.default_rng(5), EVAL_BUCKET_BATCH)
+    bench_pipe = eval_lib.BenchmarkPipeline(weights, conf("pinhole"))
+    n_bench = sum(-(-len(v) // EVAL_BUCKET_BATCH) for v in bench.buckets)
+    # warm cuDNN and the bases cache at every shape, outside the counted runs
+    for pipe in pipes.values():
+        pipe.evaluate(views, max_batches=1)
+    bench_pipe.evaluate(bench)
+
+    runs = {m: counted_eval(f"SimplePipeline, {EVAL_VIEWS} views at {EVAL_SIZE}x{EVAL_SIZE}, {m}",
+                            p, views, m, EVAL_VIEWS // EVAL_BATCH) for m, p in pipes.items()}
+    runs["benchmark"] = counted_eval("BenchmarkPipeline, 480x640 and 640x480 buckets, pinhole",
+                                     bench_pipe, bench, "pinhole", n_bench)
+    res = runs["pinhole"]["results"]
+    check(runs["benchmark"]["names"] == [v["name"] for b in bench.buckets for v in b],
+          f"BenchmarkPipeline kept the padded lanes: {runs['benchmark']['names']}")
+    check(all(k in runs["simple_radial"]["results"] for k in
+              ("k1_error", "pixel_projection_error@1", "pixel_distortion_error@1")),
+          "simple_radial run: the pixel projection metrics are missing")
+
+    # the pipeline against calibrate on the first batch: same views, device and routing
+    out = calib.calibrate(images[:EVAL_BATCH], batched=True)
+    ref = torch.stack([torch.rad2deg(out["gravity"].roll), torch.rad2deg(out["gravity"].pitch),
+                       torch.rad2deg(out["camera"].vfov)], -1).cpu().numpy()
+    got = np.stack([res[k][:EVAL_BATCH] for k in ("roll", "pitch", "vfov")], -1)
+    cal_dev = float(np.abs(got - ref).max())
+    same_stop = bool(np.array_equal(res["stop_at"][:EVAL_BATCH], out["stop_at"].cpu().numpy()))
+    log(f"eval: SimplePipeline against GeoCalib.calibrate on its first batch: largest roll/pitch/"
+        f"vfov difference {cal_dev:.3e} deg (bound {EVAL_TOL}), stop_at equal {same_stop}, bits "
+        f"equal {bool(np.array_equal(got, ref))}")
+    check(cal_dev <= EVAL_TOL and same_stop, "eval: SimplePipeline disagrees with calibrate")
+
+    roll_dev = max(roll_checks("SimplePipeline pinhole", res, truth),
+                   roll_checks("SimplePipeline simple_radial", runs["simple_radial"]["results"],
+                               truth),
+                   roll_checks("BenchmarkPipeline", runs["benchmark"]["results"], bench.truth))
+
+    # the kernels against the plain versions on the same views (reported, not judged:
+    # the whole-path gate judges both kernels)
+    with plain_versions():
+        plain, _, _ = pipes["pinhole"].evaluate(views)
+    dev = np.abs(np.stack([res[k] - plain[k] for k in ("roll", "pitch", "vfov")], -1)
+                 ).astype(np.float64)
+    apart = np.nonzero(res["stop_at"] != plain["stop_at"])[0]
+    fmt = lambda a: np.array2string(a, precision=5, separator=",", max_line_width=10**4)
+    log(f"eval: kernels against plain versions, SimplePipeline pinhole, {EVAL_VIEWS} views: "
+        f"largest roll/pitch/vfov deviation {fmt(dev.max(0))} deg, median "
+        f"{fmt(np.median(dev, 0))}; per image roll {fmt(dev[:, 0])} pitch {fmt(dev[:, 1])} "
+        f"vfov {fmt(dev[:, 2])}; {len(apart)} lanes stop apart (lane, kernels, plain) "
+        f"{[(int(i), int(res['stop_at'][i]), int(plain['stop_at'][i])) for i in apart]}")
+
+    # each kernel against its plain version, and timed, at the eval batch's shapes
+    at_shape = {"nmf": nmf_phase(calib, images[:EVAL_BATCH])}
+    for model in pipes:
+        _, obs, camera, gravity, h, w, cfg = request_system(calib, images[:EVAL_BATCH], model, {})
+        err = lm_compare(f"eval batch, {model}", obs, camera, gravity, h, w, cfg)
+        at_shape[f"lm_system {model}"] = {**lm_timing(obs, camera, gravity, w, model),
+                                          "max_abs_err": err}
+
+    speed = eval_speed(pipes["pinhole"], images, truth)
+    log(f"eval speed card: {card}")
+    launches = {k: sum(r["counts"][k] for r in runs.values()) for k in ("lm_system", "nmf")}
+    by_model = {m: sum(r["counts"]["lm_system_by_model"].get(m, 0) for r in runs.values())
+                for m in lm_ops.MODEL_IDS}
+    return {"launches": launches, "lm_by_model": by_model, "calibrate_dev_deg": cal_dev,
+            "roll_error_dev_deg": roll_dev, "plain_dev_deg": dev.max(0).tolist(),
+            "stop_apart": len(apart), "speed": speed, "at_shape": at_shape,
+            "summaries": {k: r["summaries"] for k, r in runs.items()}}
+
+
 # ---------------------------------------------------------------- train phase
 
 def train_batch(rng: np.random.Generator) -> dict:
@@ -909,27 +1165,33 @@ def main() -> int:
     gate = gate_verdict("kernels", outs_gate, refs_gate)
     check(gate["ok"], f"whole-path gate: {gate['failures']}")
 
+    evaluation = eval_phase(weights, calib, card)
     train = train_phase(weights, card)
 
     by_model = {m: sum(c["lm_system_by_model"].get(m, 0) for c in counts.values())
-                for m in lm_ops.MODEL_IDS}
+                + evaluation["lm_by_model"][m] for m in lm_ops.MODEL_IDS}
     by_model["pinhole"] += train["launches"]["lm_system"]
     for model, entry in lm["per_model"].items():
         entry["launches"] = by_model[model]
-    paths = lambda name: {"serving a-e": launches[name], "train": train["launches"][name]}
+    paths = lambda name: {"serving a-e": launches[name], "eval": evaluation["launches"][name],
+                          "train": train["launches"][name]}
     kernels = [
         {"name": "lm_system", "route": "cuda", "source": "geocalib_tpu_torch/csrc/lm_system.cu",
          "replaces": "geocalib_tpu/ops/lm_kernel.py:195",
-         "launches": launches["lm_system"] + train["launches"]["lm_system"],
+         "launches": sum(paths("lm_system").values()),
          "launches_by_path": paths("lm_system"), **lm,
+         "eval_shape": {k.split()[1]: v for k, v in evaluation["at_shape"].items() if " " in k},
          "vjp": {**train["vjp"], "replaces": "geocalib_tpu/ops/lm_kernel.py:221-249"}},
         {"name": "nmf", "route": "cuda", "source": "geocalib_tpu_torch/csrc/nmf.cu",
-         "replaces": "geocalib_tpu/ops/nmf_kernel.py:86", "launches": launches["nmf"],
-         "launches_by_path": paths("nmf"), **nmf},
+         "replaces": "geocalib_tpu/ops/nmf_kernel.py:86", "launches": sum(paths("nmf").values()),
+         "launches_by_path": paths("nmf"), **nmf, "eval_shape": evaluation["at_shape"]["nmf"]},
     ]
     train_line = {k: train[k] for k in ("ift_step_ms", "unroll_step_ms", "step_ms", "peak_gib",
                                         "lm_kernel_ms_per_step", "device_kernel_ms_per_step",
                                         "lm_share", "compute_grads_ms", "optimizer_ms", "compare")}
+    log(json.dumps({"eval": {k: v for k, v in evaluation.items()
+                             if k not in ("lm_by_model", "at_shape")},
+                    "card": card}, default=str))
     log(json.dumps({"train": train_line, "card": card}, default=str))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -20,7 +20,7 @@ from geocalib_tpu_torch.geometry.gravity import Gravity
 from geocalib_tpu_torch.models.geocalib_net import GeoCalibNet
 from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
 from geocalib_tpu_torch.optim.lm import LMConfig, run_lm
-from geocalib_tpu_torch.utils.image import ImagePreprocessor, resize_image
+from geocalib_tpu_torch.utils.image import ImagePreprocessor, load_image, resize_image
 
 Tensor = torch.Tensor
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -33,6 +33,18 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
         raise RuntimeError("GeoCalib runs on a CUDA card and none is available; "
                            "pass device='cpu' to run on the CPU")
     return dev
+
+
+def load_net(weights: Optional[Union[str, Path, Dict[str, Tensor]]], variant: str,
+             device: torch.device, dtype: torch.dtype) -> GeoCalibNet:
+    """GeoCalibNet in eval mode on `device` in `dtype`, from a Flax msgpack file of
+    the JAX package, a state_dict, or its own random initialization (None)."""
+    net = GeoCalibNet(variant)
+    if weights is not None:
+        if isinstance(weights, (str, Path)):
+            weights = params_from_jax(read_flax_msgpack(weights), variant)
+        net.load_state_dict(weights)
+    return net.eval().to(device=device, dtype=dtype)
 
 
 class GeoCalib:
@@ -53,12 +65,7 @@ class GeoCalib:
         self.variant = variant
         self.preprocessor = ImagePreprocessor()
         self.optimizer_options = optimizer_options
-        net = GeoCalibNet(variant)
-        if weights is not None:
-            if isinstance(weights, (str, Path)):
-                weights = params_from_jax(read_flax_msgpack(weights), variant)
-            net.load_state_dict(weights)
-        self.net = net.eval().to(device=self.device, dtype=self.compute_dtype)
+        self.net = load_net(weights, variant, self.device, self.compute_dtype)
 
     @torch.inference_mode()
     def calibrate(self, image, camera_model: str = "pinhole",
@@ -118,3 +125,7 @@ class GeoCalib:
         if not batched:
             out = {k: v[0] for k, v in out.items()}
         return out
+
+    def calibrate_path(self, path: Union[str, Path], **kw) -> Dict[str, Any]:
+        """Load an image from disk (PIL) and calibrate it."""
+        return self.calibrate(load_image(path), **kw)

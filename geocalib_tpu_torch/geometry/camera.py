@@ -35,6 +35,9 @@ DIST_RANGE = {
     "simple_divisional": (-3.0, 3.0),
 }
 
+_EPS = 1e-3  # least depth of a projected point
+
+
 def _f32(x, like: Tensor = None) -> Tensor:
     device = like.device if like is not None else None
     return torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -140,6 +143,10 @@ class Camera:
         )
         return rows.reshape(self.batch_shape + (3, 3))
 
+    def pinhole(self) -> "Camera":
+        """The same camera without distortion."""
+        return Camera(self.size, self.f, self.c, torch.zeros_like(self.k), "pinhole")
+
     def replace(self, **kw) -> "Camera":
         return dataclasses.replace(self, **kw)
 
@@ -198,8 +205,19 @@ class Camera:
         return cam.scale(1.0 / scales)
 
     # ---------------------------------------------------------------- #
-    # normalized coordinates
+    # pinhole (un)projection, normalized coordinates
     # ---------------------------------------------------------------- #
+
+    def project(self, p3d: Tensor) -> Tuple[Tensor, Tensor]:
+        """Perspective division; returns (p2d, valid: depth above _EPS)."""
+        z = p3d[..., -1]
+        valid = z > _EPS
+        z = torch.clamp(z, min=_EPS)
+        return p3d[..., :-1] / z[..., None], valid
+
+    def denormalize(self, p2d: Tensor) -> Tensor:
+        """Normalized coordinates → pixels."""
+        return p2d * self.f[..., None, :] + self.c[..., None, :]
 
     def normalize(self, p2d: Tensor) -> Tensor:
         return (p2d - self.c[..., None, :]) / self.f[..., None, :]
@@ -211,6 +229,11 @@ class Camera:
         if wrt == "pts":
             return torch.diag_embed((1.0 / self.f[..., None, :]).expand(p2d.shape))
         raise ValueError(f"Unknown wrt: {wrt}")
+
+    def in_image(self, p2d: Tensor) -> Tensor:
+        """Whether pixel coordinates lie in [0, size - 1]."""
+        size = self.size[..., None, :]
+        return torch.all((p2d >= 0) & (p2d <= size - 1), dim=-1)
 
     def pixel_coordinates(self, h: int, w: int) -> Tensor:
         """Pixel grid (h*w, 2), x fastest."""
@@ -232,6 +255,11 @@ class Camera:
 
     def distort_scale(self, p2d: Tensor) -> Tensor:
         return _spec(self.model).scale(self._k1(), self._k2(), _r2(p2d))
+
+    def distort(self, p2d: Tensor) -> Tuple[Tensor, Tensor]:
+        """Apply the distortion; returns (distorted, valid: all true)."""
+        valid = torch.ones(p2d.shape[:-1], dtype=torch.bool, device=p2d.device)
+        return p2d * self.distort_scale(p2d), valid
 
     def undistort(self, p2d: Tensor) -> Tuple[Tensor, Tensor]:
         s = _spec(self.model).undistort_scale(self._k1(), self._k2(), _r2(p2d))
@@ -300,6 +328,13 @@ class Camera:
             J_dist2norm = self.J_undistort(self.normalize(p2d), "pts")
             return J_dist2norm @ J_norm2f
         raise ValueError(f"Unknown wrt: {wrt}")
+
+    def world2image(self, p3d: Tensor) -> Tuple[Tensor, Tensor]:
+        """3D points (..., N, 3) → pixels; returns (p2d, valid: in front and in the image)."""
+        p2d, visible = self.project(p3d)
+        p2d, mask = self.distort(p2d)
+        p2d = self.denormalize(p2d)
+        return p2d, visible & mask & self.in_image(p2d)
 
     def pixel_bearing_many(self, p3d: Tensor) -> Tensor:
         norm = torch.linalg.norm(p3d, dim=-1, keepdim=True)
