@@ -62,6 +62,25 @@ norm within 1e-3, each leaf over 1e-6 of it within 1e-2 relative L2. A
 broken VJP (zero cotangents for the confidence planes) must fail that
 comparison in unroll mode.
 
+Then the loop phase, a path of its own: the training loop as a user runs it
+(geocalib_tpu_torch.training.train.training: MSCAN-B, batch 24 at 320x320,
+bf16, IFT gradients, augmentation="device", from the r05 weights through
+train.init_weights) for LOOP_STEPS steps with logs, one validation of
+LOOP_VAL_BATCHES batches and checkpoints, then LOOP_RESTORED_STEPS more after
+restore=True. The card has no PIL and no dataset, so the dataset class is
+replaced at the train.SimpleDataset seam by rendered views held in memory;
+the PrefetchLoader, the device augmentation, the step, the validation, the
+checkpoints and the export run unchanged. The counts are set to 0 around each
+step and each validation batch: a step launches the LM kernel 11 times and
+the NMF kernel never, a validation batch 11 and once. Every logged scalar must
+be finite, the parameters must move, metrics.jsonl must hold the records the
+schedule implies, a checkpoint restored on the card must equal the saved
+state bit for bit and start the restored run's first step, the exported
+msgpack must read back bit for bit, and one validation batch by the kernels
+must agree with the plain versions within LOOP_ANGLE_TOL, LOOP_RECALL_TOL and
+LOOP_LOSS_TOL. The step time, images/s per log window, loader stall, host
+share of a step, peak memory and checkpoint times are printed with the card.
+
 Run from the repository root, on a machine with one card:
 
     python3 chip_smoke.py
@@ -77,7 +96,9 @@ import dataclasses
 import faulthandler
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -91,7 +112,10 @@ import geocalib_tpu_torch
 from geocalib_tpu_torch.data.dataset import synthesize_gt_fields
 from geocalib_tpu_torch.eval import pipeline as eval_lib
 from geocalib_tpu_torch.geometry import planar_fields as pf
+from geocalib_tpu_torch.training import export as loop_export
+from geocalib_tpu_torch.training import train as loop_lib
 from geocalib_tpu_torch.training import train_step as train_lib
+from geocalib_tpu_torch.utils import config as loop_config
 from geocalib_tpu_torch.models import hamburger
 from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
 from geocalib_tpu_torch.ops import build, lm_system as lm_ops, nmf as nmf_ops
@@ -141,6 +165,12 @@ EVAL_SPEED_BATCHES = (8, 16)  # batch sizes timed through SimplePipeline
 EVAL_BUCKETS = {"landscape": (7, 480, 640), "portrait": (5, 640, 480)}  # views, h, w
 EVAL_BUCKET_BATCH = 4  # each bucket ends in a padded tail batch
 EVAL_TOL = 1e-4  # degrees: the pipeline against calibrate, and roll_error against the truth
+LOOP_VIEWS = {"train.csv": 72, "val.csv": 48}  # rendered 320x320 views of the loop phase
+LOOP_STEPS, LOOP_RESTORED_STEPS, LOOP_LOG_EVERY, LOOP_VAL_BATCHES = 12, 4, 4, 2
+# one validation batch, kernels against plain versions: angle errors as the whole-path
+# gate holds them with the early stop off; a recall is a share of pixels, and a pixel
+# near a threshold may cross it; a loss term may move by the bf16 NMF's own bound
+LOOP_ANGLE_TOL, LOOP_RECALL_TOL, LOOP_LOSS_TOL = ANGLE_TOL, 1e-2, NMF_TOL
 
 
 def card_name() -> str:
@@ -1079,6 +1109,273 @@ def request_system_train(batch: dict, cfg):
     return fields, obs, camera, gravity, h, w, lm_cfg
 
 
+# ---------------------------------------------------------------- loop phase
+
+def rendered_dataset_class(splits: dict):
+    """A SimpleDataset whose rows are rendered views held in memory: `splits` maps a
+    csv name to (images, truth). It keeps SimpleDataset's contract (conf, rows,
+    __len__, epoch(epoch, shard, num_shards, start_batch)) and replaces only how a
+    row is read, so the PrefetchLoader, the device augmentation, the step, the
+    validation, the checkpoints and the export run unchanged on its batches."""
+
+    class RenderedSplit(loop_lib.SimpleDataset):
+        def __init__(self, conf=None, **kw):
+            self.conf = conf or loop_lib.DatasetConf(**kw)
+            check(self.conf.augmentation == "identity",
+                  f"rendered views are fed for augmentation='device', not {self.conf.augmentation}")
+            self.images, truth = splits[self.conf.csv_name]
+            h, w = self.images.shape[1:3]
+            self.rows = [{"fname": f"{self.conf.csv_name}_{i}", "index": i, "height": h, "width": w,
+                          "vfov": math.radians(fov), "roll": math.radians(roll),
+                          "pitch": math.radians(pitch)} for i, (roll, pitch, fov) in enumerate(truth)]
+
+        def _load_row(self, row, aug_seed):
+            gt = [row["width"], row["height"], row["vfov"], row["roll"], row["pitch"], 0.0, 0.0]
+            return {"image": torch.from_numpy(self.images[row["index"]]),
+                    "gt_params": torch.tensor(gt, dtype=torch.float32)}
+
+    return RenderedSplit
+
+
+class LoopProbe:
+    """Wraps the loop's step and eval factories and its ExperimentManager: the launch
+    counts are set to 0 just before each training step and each validation batch and
+    read just after; each step is timed between CUDA events; the first step's input
+    state and every saved state are kept, with the seconds each save took."""
+
+    def __init__(self):
+        self.steps, self.evals, self.events, self.saved, self.save_s = [], [], [], {}, []
+        self.first_state = None
+
+    def counted(self, fn, parts: list, timed_steps: bool):
+        def run(*args):
+            zero_counts()
+            if timed_steps:
+                if self.first_state is None:
+                    self.first_state = args[0]
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            out = fn(*args)
+            if timed_steps:
+                end.record()
+                self.events.append((start, end))
+            parts.append({"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches})
+            return out
+        return run
+
+    @contextlib.contextmanager
+    def installed(self, dataset_cls):
+        probe = self
+        make_step, make_eval = loop_lib.make_train_step, loop_lib.make_eval_step
+        manager_cls, dataset = loop_lib.ExperimentManager, loop_lib.SimpleDataset
+
+        class Manager(manager_cls):
+            def save(self, state, step, *a, **kw):
+                t0 = time.perf_counter()
+                path = super().save(state, step, *a, **kw)
+                probe.save_s.append(time.perf_counter() - t0)
+                probe.saved[step] = state
+                return path
+
+        loop_lib.make_train_step = lambda *a, **kw: self.counted(make_step(*a, **kw), self.steps,
+                                                                 True)
+        loop_lib.make_eval_step = lambda *a, **kw: self.counted(make_eval(*a, **kw), self.evals,
+                                                                False)
+        loop_lib.ExperimentManager, loop_lib.SimpleDataset = Manager, dataset_cls
+        try:
+            yield self
+        finally:
+            loop_lib.make_train_step, loop_lib.make_eval_step = make_step, make_eval
+            loop_lib.ExperimentManager, loop_lib.SimpleDataset = manager_cls, dataset
+
+
+def states_equal(a, b) -> bool:
+    """Two TrainStates bit for bit: step, parameters, statistics, Adam count and moments."""
+    trees = lambda s: (s.params, s.batch_stats, s.opt_state.mu, s.opt_state.nu)
+    return (int(a.step) == int(b.step) and torch.equal(a.opt_state.count.cpu(), b.opt_state.count.cpu())
+            and all(set(x) == set(y) and all(torch.equal(x[k].cpu(), y[k].cpu()) for k in x)
+                    for x, y in zip(trees(a), trees(b))))
+
+
+def loop_phase(weights: dict, card: str) -> dict:
+    """The training loop (geocalib_tpu_torch.training.train.training) on the card, as a
+    user runs it: MSCAN-B, batch 24 at 320x320, bf16, 10 LM steps with IFT gradients,
+    the device augmentation, from the r05 weights through train.init_weights; LOOP_STEPS
+    steps with logs, a validation of LOOP_VAL_BATCHES batches and checkpoints, then
+    LOOP_RESTORED_STEPS more after restore=True. The card has no PIL and no dataset,
+    so the dataset class is replaced at the train.SimpleDataset seam by rendered views
+    held in memory (rendered_dataset_class); everything after it runs unchanged.
+    Checks: every logged scalar finite and no step skipped, the parameters moved,
+    the launch counts of each step (11 LM, 0 NMF) and each validation batch (11 LM,
+    1 NMF), the metrics.jsonl records, a checkpoint restored on the card bit for bit
+    equal to the saved state and the restored run's first step starting from it, the
+    exported msgpack read back bit for bit, and one validation batch by the kernels
+    against the plain versions within LOOP_ANGLE_TOL, LOOP_RECALL_TOL and LOOP_LOSS_TOL."""
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    rng = np.random.default_rng(6)
+    splits = {name: scenes(rng, n, TRAIN_SIZE, TRAIN_SIZE) for name, n in LOOP_VIEWS.items()}
+    out_dir = ROOT / ".smoke" / f"loop_{os.getpid()}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t = LOOP_STEPS
+    conf = loop_config.merge(loop_lib.default_conf, {
+        "train": {"total_steps": t, "log_every": LOOP_LOG_EVERY, "eval_every": t // 2,
+                  "save_every": t // 2, "val_batches": LOOP_VAL_BATCHES, "figures_every": 0,
+                  "init_weights": str(WEIGHTS)},
+        "data": {"dataset_dir": "rendered views in memory", "batch_size": TRAIN_B,
+                 "augmentation": "device"}})
+    log(f"loop: {json.dumps(conf)}")
+    probe = LoopProbe()
+    torch.cuda.reset_peak_memory_stats()
+    with probe.installed(rendered_dataset_class(splits)):
+        t0 = time.perf_counter()
+        loop_lib.training(conf, str(out_dir))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first_steps = len(probe.steps)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        saved = probe.saved[t]
+
+        cfg = loop_lib.make_train_config(conf)
+        net, template = train_lib.create_train_state(cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, step = loop_lib.ExperimentManager(out_dir).restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = states_equal(restored, saved) and step == t
+        log(f"loop: checkpoint {step} restored on the card in {restore_s:.2f} s, bit for bit "
+            f"equal to the saved state (step, parameters, statistics, Adam count and moments): "
+            f"{same}")
+        check(same, "loop: the restored checkpoint differs from the saved state")
+
+        probe.first_state = None
+        conf_r = loop_config.apply_dotlist(conf, [f"train.total_steps={t + LOOP_RESTORED_STEPS}"])
+        t0 = time.perf_counter()
+        last = loop_lib.training(conf_r, str(out_dir), restore=True)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        check(probe.first_state is not None and states_equal(probe.first_state, saved),
+              "loop: the restored run's first step did not start from the saved state")
+        log(f"loop: the restored run's first step started from checkpoint {t}: True")
+
+    records = [json.loads(line) for line in (out_dir / "logs" / "metrics.jsonl").read_text().splitlines()]
+    final = probe.saved[t + LOOP_RESTORED_STEPS]
+    nonfinite = [(r["step"], k) for r in records for k, v in r.items() if not math.isfinite(v)]
+    skipped = [r["step"] for r in records if r.get("skipped_nonfinite", 0) or r.get("grad_nonfinite", 0)]
+    check(not nonfinite and not skipped, f"loop: non-finite scalars {nonfinite}, skipped {skipped}")
+    init = params_from_jax(read_flax_msgpack(WEIGHTS), "b")
+    moved = sum(not torch.equal(final.params[k].cpu(), init[k]) for k in final.params)
+    log(f"loop: {moved} of {len(final.params)} parameters moved from the r05 weights")
+    check(moved >= 0.9 * len(final.params), "loop: the parameters did not move")
+
+    steps = [r["step"] for r in records if "loss/total" in r]
+    vals = [r["step"] for r in records if "val/loss/total" in r]
+    want_steps = [s for s in range(t + LOOP_RESTORED_STEPS) if s % LOOP_LOG_EVERY == 0]
+    want_vals = [s for s in range(1, t) if s % (t // 2) == 0]
+    log(f"loop: metrics.jsonl training records at steps {steps}, validation records at {vals}")
+    check(steps == want_steps and vals == want_vals,
+          f"loop: records {steps} / {vals}, expected {want_steps} / {want_vals}")
+    ckpts = sorted(p.name for p in out_dir.glob("checkpoint_*"))
+    log(f"loop: checkpoints {ckpts}")
+    check({f"checkpoint_{t // 2}", f"checkpoint_{t}", f"checkpoint_{t + LOOP_RESTORED_STEPS}",
+           "checkpoint_best"} <= set(ckpts), f"loop: checkpoints {ckpts}")
+
+    per_step = cfg.lm_steps + 1
+    check(len(probe.steps) == t + LOOP_RESTORED_STEPS and len(probe.evals) == len(want_vals) * LOOP_VAL_BATCHES,
+          f"loop: {len(probe.steps)} steps and {len(probe.evals)} validation batches")
+    check(all(c == {"lm_system": per_step, "nmf": 0} for c in probe.steps),
+          f"loop: a step must launch the LM kernel {per_step} times and the NMF kernel never: "
+          f"{probe.steps}")
+    check(all(c == {"lm_system": per_step, "nmf": 1} for c in probe.evals),
+          f"loop: a validation batch must launch the LM kernel {per_step} times and the NMF "
+          f"kernel once: {probe.evals}")
+    launches = {k: sum(c[k] for c in probe.steps + probe.evals) for k in ("lm_system", "nmf")}
+    log(f"loop: launches per step {probe.steps[0]}, per validation batch {probe.evals[0]}; in "
+        f"all {json.dumps(launches)} over {len(probe.steps)} steps and {len(probe.evals)} "
+        f"validation batches")
+
+    t0 = time.perf_counter()
+    export = out_dir / "export.msgpack"
+    got = loop_export.export_checkpoint(out_dir, export)
+    export_s = time.perf_counter() - t0
+    back = params_from_jax(read_flax_msgpack(export), "b")
+    exact = got == t + LOOP_RESTORED_STEPS and all(
+        torch.equal(back[k], v.cpu()) for tree in (final.params, final.batch_stats)
+        for k, v in tree.items())
+    log(f"loop: exported step {got} in {export_s:.2f} s; read back by read_flax_msgpack and "
+        f"params_from_jax, bit for bit equal to the final parameters and statistics: {exact}")
+    check(exact, "loop: the exported msgpack differs from the final state")
+    calib = geocalib_tpu_torch.GeoCalib(weights=str(export), compute_dtype="bfloat16")
+    out = calib.calibrate(splits["val.csv"][0][0])
+    finite(out)
+    log(f"loop: GeoCalib(weights=<export>) calibrates a view: roll "
+        f"{math.degrees(float(out['gravity'].roll)):.3f} deg against the rendered "
+        f"{splits['val.csv'][1][0][0]:.3f}")
+    del calib
+
+    # one validation batch by the kernels and by the plain versions, same state
+    val_ds = rendered_dataset_class(splits)(loop_lib.DatasetConf(csv_name="val.csv", batch_size=TRAIN_B,
+                                                                 shuffle=False))
+    batch = {k: v.cuda() for k, v in next(val_ds.epoch()).items()}
+    eval_fn = train_lib.make_eval_step(net, cfg)
+    kern = {k: float(v) for k, v in eval_fn(final, batch, (0, 7)).items()}
+    with plain_versions():
+        plain = {k: float(v) for k, v in eval_fn(final, batch, (0, 7)).items()}
+    dev = {}
+    for k, v in plain.items():
+        d = abs(kern[k] - v)
+        bound, kind = ((LOOP_RECALL_TOL, "abs") if "recall" in k else
+                       (LOOP_ANGLE_TOL, "abs deg") if k.startswith("metric/") else
+                       (LOOP_LOSS_TOL, "rel"))
+        d = d / max(abs(v), 1e-12) if kind == "rel" else d
+        dev[k] = {"dev": d, "bound": bound, "kind": kind, "ok": d <= bound}
+    worst = {kind: max((x for x in dev.items() if x[1]["kind"] == kind), key=lambda x: x[1]["dev"])
+             for kind in ("abs", "abs deg", "rel")}
+    for kind, (k, x) in worst.items():
+        log(f"loop validation, kernels vs plain: largest {kind} deviation {x['dev']:.3e} in {k} "
+            f"(bound {x['bound']})")
+    check(all(x["ok"] for x in dev.values()),
+          f"loop validation, kernels vs plain: {[k for k, x in dev.items() if not x['ok']]}")
+
+    # the host's share of one step, and its parts
+    step_fn = train_lib.make_train_step(net, cfg, augment_on_device=True)
+    train_batch_ = {k: v.cuda() for k, v in next(rendered_dataset_class(splits)(
+        loop_lib.DatasetConf(batch_size=TRAIN_B)).epoch()).items()}
+    run = lambda: step_fn(final, train_batch_, (0, 11))
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    lm_ms, device_ms = device_time_by_kernel(run)
+    aug_ms = timed(lambda: train_lib.augment_batch(train_batch_, (0, 11)))[1]
+    ms = sorted(s.elapsed_time(e) for s, e in probe.events[2:first_steps] + probe.events[first_steps + 1:])
+    rates = [r["images_per_s"] for r in records if r.get("images_per_s")]
+    stall = [r["loader_stall_s"] for r in records if "loader_stall_s" in r]
+    result = {"step_ms_median": ms[len(ms) // 2], "step_ms": ms, "images_per_s_by_window": rates,
+              "loader_stall_s": stall, "wall_ms_one_step": wall_ms, "device_ms_one_step": device_ms,
+              "lm_kernel_ms_one_step": lm_ms, "host_share": (wall_ms - device_ms) / wall_ms,
+              "augment_ms": aug_ms, "peak_gib": peak_gb, "save_s": probe.save_s,
+              "restore_s": restore_s, "export_s": export_s, "first_run_s": first_s,
+              "restored_run_s": second_s, "launches": launches, "validation_vs_plain": dev,
+              "last_scalars": {k: last[k] for k in ("loss/total", "metric/roll_error")}}
+    log(f"loop step: median {result['step_ms_median']:.1f} ms between CUDA events over "
+        f"{len(ms)} steps (the first two of the first run and the first of the restored run "
+        f"left out), range {ms[0]:.1f} to {ms[-1]:.1f} ms; images/s per log window "
+        f"{[round(r, 1) for r in rates]}; loader_stall_s per window {[round(x, 3) for x in stall]}; "
+        f"peak memory {peak_gb:.2f} GiB; card {card}")
+    log(f"loop step alone: {wall_ms:.1f} ms wall, {device_ms:.1f} ms of device kernels (LM kernel "
+        f"{lm_ms:.3f} ms), host share {result['host_share']:.3f}; the device augmentation of a "
+        f"batch {aug_ms:.2f} ms; checkpoint saves {[round(x, 2) for x in probe.save_s]} s, restore "
+        f"{restore_s:.2f} s, export {export_s:.2f} s; runs {first_s:.1f} s and {second_s:.1f} s; "
+        f"card {card}")
+    del net, template, restored, saved, final, probe
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1167,14 +1464,15 @@ def main() -> int:
 
     evaluation = eval_phase(weights, calib, card)
     train = train_phase(weights, card)
+    loop = loop_phase(weights, card)
 
     by_model = {m: sum(c["lm_system_by_model"].get(m, 0) for c in counts.values())
                 + evaluation["lm_by_model"][m] for m in lm_ops.MODEL_IDS}
-    by_model["pinhole"] += train["launches"]["lm_system"]
+    by_model["pinhole"] += train["launches"]["lm_system"] + loop["launches"]["lm_system"]
     for model, entry in lm["per_model"].items():
         entry["launches"] = by_model[model]
     paths = lambda name: {"serving a-e": launches[name], "eval": evaluation["launches"][name],
-                          "train": train["launches"][name]}
+                          "train": train["launches"][name], "loop": loop["launches"][name]}
     kernels = [
         {"name": "lm_system", "route": "cuda", "source": "geocalib_tpu_torch/csrc/lm_system.cu",
          "replaces": "geocalib_tpu/ops/lm_kernel.py:195",
@@ -1193,6 +1491,7 @@ def main() -> int:
                              if k not in ("lm_by_model", "at_shape")},
                     "card": card}, default=str))
     log(json.dumps({"train": train_line, "card": card}, default=str))
+    log(json.dumps({"loop": loop, "card": card}, default=str))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
-"""Data: the CSV dataset, the variable-size benchmark dataset, and the
-ground-truth cameras and fields of a batch."""
+"""Data: the CSV dataset and its threaded loader, the variable-size benchmark
+dataset, the host and on-device augmentations, and the ground-truth cameras
+and fields of a batch."""
 
-from geocalib_tpu_torch.data.dataset import (DatasetConf, SimpleDataset, batch_gt,
-                                             synthesize_gt_fields)
+from geocalib_tpu_torch.data.dataset import (DatasetConf, PrefetchLoader, SimpleDataset,
+                                             batch_gt, synthesize_gt_fields)
 
-__all__ = ["DatasetConf", "SimpleDataset", "batch_gt", "synthesize_gt_fields"]
+__all__ = ["DatasetConf", "PrefetchLoader", "SimpleDataset", "batch_gt", "synthesize_gt_fields"]

@@ -18,7 +18,8 @@ import torch
 
 from geocalib_tpu_torch.geometry.gravity import Gravity
 from geocalib_tpu_torch.models.geocalib_net import GeoCalibNet
-from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
+from geocalib_tpu_torch.models.weights import (_entries, params_from_jax, params_to_jax,
+                                               read_flax_msgpack, sorted_tree, write_flax_msgpack)
 from geocalib_tpu_torch.optim.lm import LMConfig, run_lm
 from geocalib_tpu_torch.utils.image import ImagePreprocessor, load_image, resize_image
 
@@ -129,3 +130,16 @@ class GeoCalib:
     def calibrate_path(self, path: Union[str, Path], **kw) -> Dict[str, Any]:
         """Load an image from disk (PIL) and calibrate it."""
         return self.calibrate(load_image(path), **kw)
+
+
+def save_params(variables: Dict[str, Tensor], path: Union[str, Path], variant: str = "b") -> None:
+    """Write GeoCalibNet(variant)'s parameters and running statistics, by name (a
+    state_dict), as the JAX package's Flax msgpack {"params", "batch_stats"}, which
+    ``GeoCalib(weights=path)`` and the JAX package's ``load_params`` read: the bytes
+    its ``save_params`` writes for a state from ``create_train_state`` (keys sorted
+    below the two collections)."""
+    missing = {name for name, *_ in _entries(variant)} - set(variables)
+    if missing:
+        raise ValueError(f"save_params: {len(missing)} entries missing, e.g. {sorted(missing)[:3]}")
+    tree = params_to_jax(variables, variant)
+    write_flax_msgpack({k: sorted_tree(v) for k, v in tree.items()}, path)

@@ -110,7 +110,9 @@ class FeatureFusionBlock(nn.Module):
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (eps 1e-5) with Flax's training semantics.
 
-    Evaluation is torch's, on the running statistics. Training takes the batch
+    Evaluation is torch's, on the running statistics; where those are float32
+    and x is not (validation during mixed-precision training), it is Flax's
+    formula below on them. Training takes the batch
     statistics in float32 whatever x's dtype, as Flax's ``_compute_stats``:
     the mean and E[x²] - E[x]² clipped at 0, the *biased* variance, which also
     goes into the running update ``r = 0.9 r + 0.1 batch`` (in place, under
@@ -122,15 +124,18 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(ch, eps=1e-5)
 
     def forward(self, x: Tensor) -> Tensor:
-        if not self.training:
+        if not self.training and self.running_mean.dtype == x.dtype:
             return super().forward(x)
         x32 = x.float()
-        mean = x32.mean((0, 2, 3))
-        var = torch.clamp((x32 * x32).mean((0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = FLAX_BN_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean = x32.mean((0, 2, 3))
+            var = torch.clamp((x32 * x32).mean((0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = FLAX_BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
         return y.to(x.dtype)

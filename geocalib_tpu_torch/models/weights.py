@@ -3,7 +3,11 @@
 ``read_flax_msgpack`` decodes the msgpack subset that
 ``flax.serialization.msgpack_serialize`` writes (maps, strings, numbers,
 binaries, and arrays as ext type 1 holding a msgpack ``(shape, dtype,
-bytes)`` triple) with the standard library and numpy. ``params_from_jax``
+bytes)`` triple) with the standard library and numpy, and
+``write_flax_msgpack`` encodes a tree of dicts and numpy arrays the way
+``flax.serialization.to_bytes`` (the JAX package's ``save_params``) does: map
+keys in the tree's own order and every value in msgpack's smallest form, so
+the bytes are Flax's for the same tree. ``params_from_jax``
 maps the Flax tree ``{"params", "batch_stats"}`` onto ``GeoCalibNet``'s
 parameter names, turning HWIO kernels into OIHW; ``params_to_jax`` maps
 back. Both walk one table of the leaves (``_entries``).
@@ -12,7 +16,7 @@ back. Both walk one table of the leaves (``_entries``).
 import functools
 import struct
 from pathlib import Path
-from typing import Any, Dict, Iterator, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ import torch
 from geocalib_tpu_torch.models.mscan import MSCAN_VARIANTS
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+_MAX_CHUNK_BYTES = 2**30 - 2  # Flax splits larger arrays into chunks; not written here
 
 
 class _Reader:
@@ -104,6 +109,80 @@ def read_flax_msgpack(path: Union[str, Path]) -> Dict[str, Any]:
     if reader.pos != len(data):
         raise ValueError(f"{path}: {len(data) - reader.pos} trailing bytes")
     return tree
+
+
+def _head(fixed: Optional[int], fixed_max: int, codes: Tuple[int, ...], n: int) -> bytes:
+    """The header of a str, bin, ext, array or map of length n: its fix form up to
+    fixed_max, else the first of its 8/16/32-bit forms (codes) that holds n."""
+    if fixed is not None and n <= fixed_max:
+        return bytes([fixed | n])
+    for code, fmt in zip(codes, (">B", ">H", ">I")[3 - len(codes):]):
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length {n} is too long")
+
+
+def _pack_int(v: int) -> bytes:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        return struct.pack(">b" if v < 0 else ">B", v)
+    forms = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if v >= 0 else (
+        (0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+    for code, fmt in forms:
+        try:
+            return bytes([code]) + struct.pack(fmt, v)
+        except struct.error:
+            continue
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = (bytes([fixext[n]]) if n in fixext
+            else _head(None, -1, (0xC7, 0xC8, 0xC9), n))
+    return head + struct.pack(">b", code) + payload
+
+
+def _pack_array(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.nbytes > _MAX_CHUNK_BYTES:
+        raise ValueError(f"cannot write an array of {arr.dtype} and {arr.nbytes} bytes")
+    return _pack((tuple(int(d) for d in arr.shape), arr.dtype.name,
+                  np.ascontiguousarray(arr).tobytes()))
+
+
+def _pack(v: Any) -> bytes:
+    if isinstance(v, dict):
+        out = [_head(0x80, 15, (0xDE, 0xDF), len(v))]
+        for k, x in v.items():
+            out += [_pack(k), _pack(x)]
+        return b"".join(out)
+    if isinstance(v, (list, tuple)):
+        return _head(0x90, 15, (0xDC, 0xDD), len(v)) + b"".join(_pack(x) for x in v)
+    if v is None:
+        return b"\xc0"
+    if isinstance(v, bool):
+        return b"\xc3" if v else b"\xc2"
+    if isinstance(v, int):
+        return _pack_int(v)
+    if isinstance(v, float):
+        return b"\xcb" + struct.pack(">d", v)
+    if isinstance(v, str):
+        data = v.encode()
+        return _head(0xA0, 31, (0xD9, 0xDA, 0xDB), len(data)) + data
+    if isinstance(v, (bytes, bytearray, memoryview)):
+        data = bytes(v)
+        return _head(None, -1, (0xC4, 0xC5, 0xC6), len(data)) + data
+    if isinstance(v, np.ndarray):
+        return _pack_ext(_EXT_NDARRAY, _pack_array(v))
+    if isinstance(v, np.generic):
+        return _pack_ext(_EXT_NPSCALAR, _pack_array(np.asarray(v)))
+    raise TypeError(f"cannot write a {type(v).__name__} to msgpack")
+
+
+def write_flax_msgpack(tree: Dict[str, Any], path: Union[str, Path]) -> None:
+    """Write a tree of dicts, numpy arrays and Python scalars as
+    ``flax.serialization.to_bytes`` would (arrays up to 1 GiB)."""
+    Path(path).write_bytes(_pack(tree))
 
 
 # ---------------------------------------------------------------------- #
@@ -199,6 +278,12 @@ def params_from_jax(tree: Dict[str, Any], variant: str = "b") -> Dict[str, torch
         if name.endswith(".running_var"):
             sd[name[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def sorted_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The tree with every dict's keys sorted, as a jitted Flax init returns it."""
+    return {k: sorted_tree(tree[k]) if isinstance(tree[k], dict) else tree[k]
+            for k in sorted(tree)}
 
 
 def params_to_jax(named: Dict[str, torch.Tensor], variant: str = "b") -> Dict[str, Any]:

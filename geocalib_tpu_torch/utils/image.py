@@ -4,7 +4,10 @@ of 32, and record the scale and crop so cameras map back to the original pixels.
 Port of geocalib_tpu/utils/image.py. The antialiased bilinear downsizing is
 ``F.interpolate(..., antialias=True)``, which agrees with
 ``jax.image.resize(..., antialias=True)`` to float32 rounding (the same
-triangle kernel widened by the scale, renormalized at the borders). PIL is
+triangle kernel widened by the scale, renormalized at the borders). Without
+antialiasing, ``F.interpolate`` places its samples at positions that round
+otherwise, so that case computes ``jax.image.resize``'s own weight matrices
+(``scale_and_translate`` with the triangle kernel) and contracts with them. PIL is
 imported inside the file functions: the machine with the card has none, and
 the preprocessor itself needs no file.
 """
@@ -36,13 +39,35 @@ def write_image(img, path: Union[str, Path]) -> None:
     Image.fromarray(arr).save(str(path))
 
 
+def _triangle_weights(n_in: int, n_out: int, device) -> Tensor:
+    """jax.image's ``compute_weight_mat`` (n_in, n_out) for the triangle kernel without
+    antialiasing, in float32: sample positions (i + 0.5) / scale - 0.5, weights
+    max(0, 1 - |position - j|) normalised per sample, zero outside the input."""
+    f32 = dict(dtype=torch.float32, device=device)
+    inv_scale = torch.tensor(1.0 / (n_out / n_in), **f32)
+    sample = (torch.arange(n_out, **f32) + 0.5) * inv_scale - 0.5
+    w = torch.clamp(1.0 - (sample[None, :] - torch.arange(n_in, **f32)[:, None]).abs(), min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
 def resize_image(img: Tensor, size: Tuple[int, int], antialias: bool = True) -> Tensor:
     """Bilinear resize of (..., H, W, C) to `size`, half-pixel centers
     (jax.image.resize's "bilinear"), antialiased when downsizing if asked."""
     lead = img.shape[:-3]
-    x = img.reshape((-1,) + tuple(img.shape[-3:])).permute(0, 3, 1, 2)
-    out = F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
-                        antialias=antialias)
+    x = img.reshape((-1,) + tuple(img.shape[-3:]))
+    if not antialias:
+        for dim, n in ((1, size[0]), (2, size[1])):
+            if x.shape[dim] != n:
+                w = _triangle_weights(x.shape[dim], n, x.device).to(x.dtype)
+                x = torch.movedim(torch.tensordot(x, w, dims=([dim], [0])), -1, dim)
+        return x.reshape(lead + (size[0], size[1], img.shape[-1]))
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
+                        align_corners=False, antialias=True)
     return out.permute(0, 2, 3, 1).reshape(lead + (size[0], size[1], img.shape[-1]))
 
 

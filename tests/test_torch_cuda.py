@@ -326,3 +326,82 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     obs, cam, grav = _lm_inputs("pinhole", 1, 8, 8, card)
     with pytest.raises(ValueError):
         lm_system({"up_x": obs["up_x"]}, cam, grav, 8, 8, LMConfig())
+
+
+def test_device_augment_on_the_card_matches_the_cpu(card):
+    """device_augment on CUDA tensors against the same function on the CPU, same key:
+    99.9% of the elements within 1e-5 (powers, exponentials and the erfinv's log1p
+    round in other ways on each side) and every element within one quantization
+    level of the JPEG stand-in, 1/24, where a value sits at a rounding step."""
+    from geocalib_tpu_torch.data.device_augment import DEVICE_AUGMENTATIONS
+
+    img = torch.from_numpy(np.random.default_rng(0).uniform(size=(4, 64, 48, 3)).astype(np.float32))
+    for name in ("geocalib", "dark", "deepcalib"):
+        for key in ((0, 1), (3, 9)):
+            cpu = DEVICE_AUGMENTATIONS[name](img, key)
+            gpu = DEVICE_AUGMENTATIONS[name](img.to(card), key).cpu()
+            d = (gpu - cpu).abs()
+            assert float((d <= 1e-5).float().mean()) >= 0.999, (name, key)
+            assert float(d.max()) <= 1 / 24, (name, key)
+
+
+class _MemoryDataset:
+    """SimpleDataset rows held in memory (the card has no PIL): random images and
+    random GT rows, one split per csv name."""
+
+    @staticmethod
+    def make(size: int, rows: int):
+        from geocalib_tpu_torch.data.dataset import DatasetConf, SimpleDataset
+
+        rng = np.random.default_rng(1)
+        splits = {name: (rng.uniform(size=(rows, size, size, 3)).astype(np.float32),
+                         rng.uniform([0.7, -0.3, -0.3], [1.2, 0.3, 0.3], (rows, 3)))
+                  for name in ("train.csv", "val.csv")}
+
+        class Split(SimpleDataset):
+            def __init__(self, conf=None, **kw):
+                self.conf = conf or DatasetConf(**kw)
+                self.images, gt = splits[self.conf.csv_name]
+                self.rows = [{"fname": str(i), "i": i, "gt": [size, size, *g, 0.0, 0.0]}
+                             for i, g in enumerate(gt)]
+
+            def _load_row(self, row, aug_seed):
+                return {"image": torch.from_numpy(self.images[row["i"]]),
+                        "gt_params": torch.tensor(row["gt"], dtype=torch.float32)}
+
+        return Split
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_training_loop_saves_and_restores_on_the_card(card, tmp_path, monkeypatch, staged):
+    """Two steps of the training loop on the card (tiny variant, 64x64, bf16, the device
+    augmentation), a checkpoint restored on the card equal to the saved file bit for
+    bit, one more step after restore=True, and the export read back."""
+    from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
+    from geocalib_tpu_torch.training import train as loop
+    from geocalib_tpu_torch.training.checkpoint import ExperimentManager
+    from geocalib_tpu_torch.training.export import export_checkpoint
+    from geocalib_tpu_torch.training.train_step import TrainConfig, create_train_state
+    from geocalib_tpu_torch.utils.config import merge
+
+    monkeypatch.setattr(loop, "SimpleDataset", _MemoryDataset.make(64, 8))
+    conf = merge(loop.default_conf, {
+        "train": {"variant": "tiny", "lm_steps": 3, "input_size": 64, "total_steps": 2,
+                  "log_every": 1, "eval_every": 1, "save_every": 1, "val_batches": 1,
+                  "figures_every": 0},
+        "data": {"batch_size": 4, "augmentation": "device"}})
+    scalars = loop.training(conf, str(tmp_path), staged=staged)
+    assert all(np.isfinite(v) for v in scalars.values())
+    _, template = create_train_state(TrainConfig(variant="tiny"), device=card)
+    state, step = ExperimentManager(tmp_path).restore(template)
+    saved = torch.load(tmp_path / "checkpoint_2" / "state.pt", weights_only=True)
+    assert step == 2 and state.opt_state.count.device.type == card.type
+    for tree, key in ((state.params, "params"), (state.opt_state.mu, "mu"),
+                      (state.opt_state.nu, "nu"), (state.batch_stats, "batch_stats")):
+        assert all(torch.equal(v.cpu(), saved[key][k]) for k, v in tree.items()), key
+    conf["train"]["total_steps"] = 3
+    assert np.isfinite(loop.training(conf, str(tmp_path), restore=True, staged=staged)["loss/total"])
+    got = export_checkpoint(tmp_path, tmp_path / "w.msgpack")
+    back = params_from_jax(read_flax_msgpack(tmp_path / "w.msgpack"), "tiny")
+    final = torch.load(tmp_path / "checkpoint_3" / "state.pt", weights_only=True)
+    assert got == 3 and all(torch.equal(back[k], v) for k, v in final["params"].items())

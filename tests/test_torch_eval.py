@@ -61,7 +61,7 @@ def one_torch_thread():
 # ------------------------------------------------------------------ preprocessing
 
 CONFS = [{"resize": 64}, {"resize": None}, {"side": "long"}, {"square_crop": True},
-         {"edge_divisible_by": None}]
+         {"edge_divisible_by": None}, {"antialias": False}]
 
 
 @pytest.mark.parametrize("shape", [(480, 640), (640, 480), (720, 540), (100, 70)])
@@ -278,8 +278,12 @@ def test_simple_dataset_matches():
             assert out["image"].shape == (3, 320, 320, 3)
             assert np.array_equal(out["image"].numpy(), ref["image"])
             assert np.array_equal(out["gt_params"].numpy(), ref["gt_params"])
-    with pytest.raises(ValueError, match="not ported"):
-        tdata.SimpleDataset(dataset_dir=str(SYNTH), csv_name="test.csv", augmentation="geocalib")
+    with pytest.raises(ValueError, match="unknown augmentation"):
+        tdata.SimpleDataset(dataset_dir=str(SYNTH), csv_name="test.csv", augmentation="sepia")
+    kw.update(augmentation="geocalib", batch_size=2)
+    ref = next(jdata.SimpleDataset(jdata.DatasetConf(**kw)).epoch(1))
+    out = next(tdata.SimpleDataset(**kw).epoch(1))
+    assert np.array_equal(out["image"].numpy(), ref["image"])
 
 
 SIZES = [(480, 640), (640, 480), (720, 540), (480, 640), (480, 640)]

@@ -1,15 +1,18 @@
-"""The port stands alone: no JAX, Flax, msgpack, cv2 or geocalib_tpu, and PIL
-and h5py only inside the functions that read or write files.
+"""The port stands alone: no JAX, Flax, msgpack, cv2 or geocalib_tpu, and PIL,
+h5py, PyYAML and wandb only inside the functions that use them.
 
-Every module of geocalib_tpu_torch/, chip_smoke.py and the card tools
-(tools/torch_path_witness.py, tools/nmf_stage_times.py,
-tools/nmf_order_sensitivity.py, tools/lm_kernel_sweep.py) is parsed with ast;
+Every module of geocalib_tpu_torch/, chip_smoke.py, bench_torch.py and the
+card tools (tools/torch_path_witness.py, tools/nmf_stage_times.py,
+tools/nmf_order_sensitivity.py, tools/lm_kernel_sweep.py,
+tools/torch_step_profile.py) is parsed with ast;
 each import must name the standard library, torch, numpy, the package itself
-or chip_smoke, except that a function may import PIL or h5py (image files and
-h5 results, as the JAX package does). The machine with the card has none of
-the others. Every module of the package is then imported in a fresh
-interpreter, which must not have loaded jax, geocalib_tpu, PIL or h5py. The
-msgpack reader that replaces flax.serialization is held against it here.
+or chip_smoke, except that a function may import PIL, h5py or yaml (image
+files, h5 results and a user's YAML conf, as the JAX package does) or wandb
+(an optional backend of the metrics writer). The machine with the card has
+none of the others. Every module of the package is then imported in a fresh
+interpreter, which must not have loaded jax, geocalib_tpu, PIL, h5py, yaml,
+wandb or tensorboard. The msgpack reader that replaces flax.serialization is
+held against it here.
 """
 
 import ast
@@ -26,12 +29,13 @@ from geocalib_tpu_torch.models.weights import read_flax_msgpack
 
 ROOT = Path(__file__).resolve().parents[1]
 ALLOWED = {"torch", "numpy", "geocalib_tpu_torch", "chip_smoke"}
-IN_FUNCTIONS = {"PIL", "h5py"}  # optional on the card: imported where a file is read or written
+# optional on the card: imported where a file is read or written, or a backend started
+IN_FUNCTIONS = {"PIL", "h5py", "yaml", "wandb"}
 FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "cv2", "geocalib_tpu", "triton"}
 FILES = sorted((ROOT / "geocalib_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_path_witness.py",
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "torch_path_witness.py",
     ROOT / "tools" / "nmf_stage_times.py", ROOT / "tools" / "nmf_order_sensitivity.py",
-    ROOT / "tools" / "lm_kernel_sweep.py"]
+    ROOT / "tools" / "lm_kernel_sweep.py", ROOT / "tools" / "torch_step_profile.py"]
 
 
 def _imports(path: Path):
@@ -62,7 +66,8 @@ def test_importing_the_package_loads_no_optional_module():
     modules = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts).replace(".__init__", "")
                      for p in (ROOT / "geocalib_tpu_torch").rglob("*.py"))
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
-            + "print(sorted(m for m in ('jax', 'geocalib_tpu', 'PIL', 'h5py') if m in sys.modules))")
+            + "print(sorted(m for m in ('jax', 'geocalib_tpu', 'PIL', 'h5py', 'yaml', 'wandb', "
+            "'tensorboard') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr

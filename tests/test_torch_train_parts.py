@@ -147,6 +147,33 @@ def test_batchnorm_train_matches_flax(dtype):
             xt, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, 1e-5))
 
 
+def test_batchnorm_eval_with_float32_statistics_matches_flax():
+    """Validation during bf16 training: a bf16 input, bf16 scale and bias, float32
+    running statistics; Flax normalises in float32 and casts to bf16. Bound: one
+    bf16 rounding of the output, 2^-8 relative to its largest value."""
+    rng = np.random.default_rng(1)
+    x = (rng.normal(size=(4, 6, 5, 7)) * 3 + 2).astype(np.float32)
+    scale, bias = rng.uniform(0.5, 1.5, 7).astype(np.float32), rng.normal(size=7).astype(np.float32)
+    mean, var = rng.normal(size=7).astype(np.float32), rng.uniform(0.5, 2, 7).astype(np.float32)
+    variables = {"params": {"BatchNorm_0": {"scale": jnp.asarray(scale, jnp.bfloat16),
+                                            "bias": jnp.asarray(bias, jnp.bfloat16)}},
+                 "batch_stats": {"BatchNorm_0": {"mean": jnp.asarray(mean),
+                                                 "var": jnp.asarray(var)}}}
+    ref = JBatchNorm().apply(variables, jnp.asarray(x, jnp.bfloat16), train=False)
+    assert ref.dtype == jnp.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    bn = BatchNorm(7).to(torch.bfloat16).eval()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(scale))
+        bn.bias.copy_(torch.from_numpy(bias))
+    bn.running_mean.data = torch.from_numpy(mean)
+    bn.running_var.data = torch.from_numpy(var)
+    with torch.no_grad():
+        out = bn(torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=2.0**-8 * np.abs(ref).max())
+
+
 def test_droppath_keeps_at_its_rate_and_rescales():
     rate = 0.3
     dp = DropPath(rate).train()
@@ -292,10 +319,12 @@ def _opt_tree(rng, step):
 
 @pytest.mark.parametrize("sanitize", [True, False])
 def test_optimizer_matches_optax_chain(sanitize):
-    """Three steps of optimizer_update against optax's chain(zero_nans,
-    clip_by_global_norm, adamw) on a tree with a NaN in one leaf and an inf in
-    another: zeroed first as train_step does (sanitize), or fed raw, where the inf
-    poisons the clip as it does in optax. Steps 0 and 2 are clipped (‖g‖ > 1)."""
+    """Three steps of optimizer_update, the train step's optimizer, against optax's
+    chain(zero_nans, clip_by_global_norm, adamw) on a tree with a NaN in one leaf
+    and an inf in another, zeroed before optax. The port gets them zeroed too
+    (sanitize), or raw, and zeroes them itself as the step does: the inf, which
+    would poison optax's clip, never reaches the clip. Steps 0 and 2 are clipped
+    (‖g‖ > 1)."""
     cfg = T.TrainConfig(lr=1e-2, warmup_steps=2, decay_milestones=(3,))
     jcfg = J.TrainConfig(lr=1e-2, warmup_steps=2, decay_milestones=(3,))
     opt = J.make_optimizer(jcfg)
@@ -309,22 +338,38 @@ def test_optimizer_matches_optax_chain(sanitize):
         g = _opt_tree(rng, step)
         g["b"][1] = np.nan
         g["c"][0, 1, 0] = np.inf
-        if sanitize:
-            g = {k: np.where(np.isfinite(v), v, 0).astype(np.float32) for k, v in g.items()}
-        norm = np.sqrt(sum(float((np.nan_to_num(v, posinf=0) ** 2).sum()) for v in g.values()))
+        zeroed = {k: np.where(np.isfinite(v), v, 0).astype(np.float32) for k, v in g.items()}
+        norm = np.sqrt(sum(float((v ** 2).sum()) for v in zeroed.values()))
         assert (norm > 1.0) == (step != 1)
-        upd, jstate = opt.update(jax.tree.map(jnp.asarray, g), jstate, jparams)
+        upd, jstate = opt.update(jax.tree.map(jnp.asarray, zeroed), jstate, jparams)
         jparams = optax.apply_updates(jparams, upd)
-        tupd, tstate = T.optimizer_update({k: torch.from_numpy(v) for k, v in g.items()}, tstate,
-                                          tparams, cfg)
-        tparams = {k: p + tupd[k] for k, p in tparams.items()}
+        fed = zeroed if sanitize else g
+        tparams, tstate, scalars = T.optimizer_update(
+            {k: torch.from_numpy(v) for k, v in fed.items()}, tstate, tparams, cfg)
+        assert float(scalars["grad_nonfinite"]) == (0.0 if sanitize else 1.0)
+        np.testing.assert_allclose(float(scalars["grad_norm"]), norm, rtol=1e-6)
         for k in params:
             np.testing.assert_allclose(tparams[k].numpy(), np.asarray(jparams[k]), rtol=1e-6,
-                                       atol=1e-7, equal_nan=not sanitize, err_msg=f"{step} {k}")
+                                       atol=1e-7, err_msg=f"{step} {k}")
     assert int(tstate.count) == 3
-    # raw, the inf makes the global norm inf, and inf/inf a NaN in its leaf alone
-    assert np.isfinite(np.asarray(jparams["c"])).all() == sanitize
-    assert np.isfinite(tparams["a"].numpy()).all()
+    assert all(np.isfinite(v.numpy()).all() for v in tparams.values())
+
+
+def test_optimizer_keeps_everything_on_a_nonfinite_loss():
+    """finite=False (the step's loss was not finite): parameters, moments and count
+    are returned unchanged."""
+    cfg = T.TrainConfig(lr=1e-2, warmup_steps=2)
+    rng = np.random.default_rng(0)
+    tparams = {k: torch.from_numpy(v) for k, v in _opt_tree(rng, 0).items()}
+    tstate = T.optimizer_init(tparams)
+    grads = {k: torch.from_numpy(v) for k, v in _opt_tree(rng, 1).items()}
+    tparams, tstate, _ = T.optimizer_update(grads, tstate, tparams, cfg)
+    kept, kept_state, _ = T.optimizer_update(grads, tstate, tparams, cfg,
+                                             finite=torch.tensor(False))
+    assert int(kept_state.count) == 1
+    for k in tparams:
+        assert torch.equal(kept[k], tparams[k]) and torch.equal(kept_state.mu[k], tstate.mu[k])
+        assert torch.equal(kept_state.nu[k], tstate.nu[k])
 
 
 def test_schedule_matches_optax():
