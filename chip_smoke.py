@@ -81,6 +81,33 @@ must agree with the plain versions within LOOP_ANGLE_TOL, LOOP_RECALL_TOL and
 LOOP_LOSS_TOL. The step time, images/s per log window, loader stall, host
 share of a step, peak memory and checkpoint times are printed with the card.
 
+The LM phase also drives the LM kernel's cost-only instance (the TPU kernel's
+with_system=False) at request a's planes for each camera model, as a path of
+its own (one launch each): its cost must equal the full instance's bit for
+bit and the plain version's within LM_TOL, with its time and bound.
+
+Then the generate phase, a path of its own, through the port's per-pano
+functions (data/generate.py): 4 panoramas at the openpano_synth_v2
+configuration (seed 1, 640x1280 panoramas, 16 crops of 320x320, pinhole), 2 at
+openpano_radial_v2's (seed 2, simple_radial) and 1 at the module's defaults
+(768x1536, 16 crops of 640x640). Each panorama's synthesis on the host is timed,
+its crops rendered on the card (CUDA events) and on the CPU: rows equal, each
+crop pixel's sample coordinates within RENDER_COORD_TOL pano pixels of the
+CPU's on the sphere, and the card's sampler equal to the CPU's on the same
+coordinates within RENDER_SAMPLER_TOL. The 96 crops at 320x320 are calibrated
+on the card (batch 16, each set's camera model; 1 NMF and 31 LM launches a
+batch), and the median roll and pitch errors against the rows' truth (roll as
+Gravity.roll reads it) must be within GENERATE_ANGLE_TOL. Last, generate_dataset
+itself runs on the card with a pool of synthesis workers (4 panoramas at the
+radial set's configuration; the JPEG writer replaced by an in-memory store, as
+the card has no PIL): every row's crop rendered on the card, and the train
+CSV's rows equal, as text, to the per-pano run's. Then the demo phase:
+InteractiveDemo.process_frame with every overlay on, on 4 generated
+simple_radial crops for pinhole, simple_radial and simple_divisional (counts
+set to 0 around it); frames finite and of the crop's shape, undistort_image
+and the overlays by the card against the same camera and gravity on the CPU,
+and milliseconds per frame.
+
 Run from the repository root, on a machine with one card:
 
     python3 chip_smoke.py
@@ -92,6 +119,7 @@ repository. Every line is flushed as it is printed; the last line is
 
 import contextlib
 import copy
+import csv
 import dataclasses
 import faulthandler
 import json
@@ -109,7 +137,9 @@ import numpy as np
 import torch
 
 import geocalib_tpu_torch
+from geocalib_tpu_torch.data import generate as gen_lib, pano as pano_lib
 from geocalib_tpu_torch.data.dataset import synthesize_gt_fields
+from geocalib_tpu_torch.demo import demo as demo_lib, overlays as overlays_lib
 from geocalib_tpu_torch.eval import pipeline as eval_lib
 from geocalib_tpu_torch.geometry import planar_fields as pf
 from geocalib_tpu_torch.training import export as loop_export
@@ -142,6 +172,11 @@ BF16_FLOPS = 989e12
 # pixels' Jacobian rows.
 LM_FLOPS_PER_PIXEL = {"pinhole": 228, "simple_radial": 351, "radial": 425,
                       "simple_divisional": 383}
+# The same count for the cost-only instance (with_system=False): r², the predicted
+# up vector and sin(latitude), the residuals, the huber loss's value, the
+# confidences and the sums; the Jacobians, the IRLS weights and G, H drop out.
+LM_COST_FLOPS_PER_PIXEL = {"pinhole": 55, "simple_radial": 71, "radial": 82,
+                           "simple_divisional": 84}
 # The distortion of the camera each LM instance is timed with, at request a's shape.
 LM_TIMING_K = {"pinhole": (0.0, 0.0), "simple_radial": (-0.1, 0.0), "radial": (-0.1, 0.02),
                "simple_divisional": (-0.3, 0.0)}
@@ -171,6 +206,34 @@ LOOP_STEPS, LOOP_RESTORED_STEPS, LOOP_LOG_EVERY, LOOP_VAL_BATCHES = 12, 4, 4, 2
 # gate holds them with the early stop off; a recall is a share of pixels, and a pixel
 # near a threshold may cross it; a loss term may move by the bf16 NMF's own bound
 LOOP_ANGLE_TOL, LOOP_RECALL_TOL, LOOP_LOSS_TOL = ANGLE_TOL, 1e-2, NMF_TOL
+# The generate phase: name -> (panoramas, camera model, seed, dataset_conf overrides).
+# The first two are the committed training sets' configurations (.gitignore records
+# their commands), the third the module's defaults.
+GENERATE_SETS = {
+    "openpano_synth_v2": (4, "pinhole", 1, {"height": 320, "width": 320, "pano_height": 640,
+                                            "pano_width": 1280}),
+    "openpano_radial_v2": (2, "simple_radial", 2, {"height": 320, "width": 320,
+                                                   "pano_height": 640, "pano_width": 1280}),
+    "defaults": (1, "pinhole", 0, {}),
+}
+# The card's render against the CPU's, with the CPU tests' bounds
+# (tests/test_torch_generate.py): where a crop pixel samples the pano within
+# RENDER_COORD_TOL pano pixels on the sphere (8 float32 ulps of a coordinate near
+# 1280; pano.sample_distance counts the seam's two columns and a pole's row as one
+# direction), and the sampler on equal coordinates within RENDER_SAMPLER_TOL. The
+# crops' values are reported, not judged: at a 1280-wide pano a coordinate's ulp is
+# 1.2e-4 px, and at the ±π seam a ray whose x rounds to the other sign samples the
+# other edge column. RENDER_TOL holds the demo's undistortion (no seam, a 320-pixel
+# image).
+RENDER_COORD_TOL, RENDER_SAMPLER_TOL, RENDER_VALUE_REPORT = 1e-3, 1e-6, 1e-4
+RENDER_TOL = 1e-4
+GENERATE_CALIB_SIZE, GENERATE_CALIB_BATCH, GENERATE_CALIB_CROPS = 320, 16, 96
+GENERATE_POOL_PANOS, GENERATE_POOL_WORKERS = 4, 2  # generate_dataset's train split: 2 panos
+# degrees: a sign or axis error in the renderer's rotation gives medians of 20 to 45
+# for roll and pitch drawn over +-45
+GENERATE_ANGLE_TOL = 5.0
+DEMO_MODELS, DEMO_FRAMES, DEMO_PIXEL_SHARE = ("pinhole", "simple_radial",
+                                              "simple_divisional"), 4, 1e-3
 
 
 def card_name() -> str:
@@ -450,6 +513,56 @@ def lm_timing(obs, camera, gravity, w: int, model: str) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def lm_cost_phase(obs, camera, gravity, h: int, w: int) -> dict:
+    """The LM kernel's cost-only instance (with_system=False) at request a's planes, each
+    camera model with LM_TIMING_K's distortion. Its path run: the count set to 0, one
+    lm_system(..., with_system=False) call per model, the count read (one launch each).
+    Then each model's cost against the full instance's (bit for bit: the same sums in the
+    same order) and the plain version's (LM_TOL), and its time against its bound."""
+    B, N = obs["up_x"].shape
+    cams = {m: Camera(camera.size, camera.f, camera.c,
+                      torch.tensor(LM_TIMING_K[m], device=camera.f.device).expand(B, 2), m)
+            for m in lm_ops.MODEL_IDS}
+    cfgs = {m: LMConfig(camera_model=m) for m in lm_ops.MODEL_IDS}
+    lm_ops.lm_system.cost_launches = 0
+    outs = {m: lm_ops.lm_system(obs, cams[m], gravity, h, w, cfgs[m], with_system=False)
+            for m in lm_ops.MODEL_IDS}
+    torch.cuda.synchronize()
+    launches = lm_ops.lm_system.cost_launches
+    check(launches == len(lm_ops.MODEL_IDS),
+          f"cost-only LM: {launches} launches for {len(lm_ops.MODEL_IDS)} calls")
+    per_model, max_abs = {}, 0.0
+    for m, (G, H, cost) in outs.items():
+        full = lm_ops.lm_system(obs, cams[m], gravity, h, w, cfgs[m])[2]
+        plain = lm_ops.lm_system_plain(obs, cams[m], gravity, h, w, cfgs[m], with_system=False)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(cost, full)
+        dev = rel_dev(cost, plain[2])
+        max_abs = max(max_abs, float((cost - plain[2]).abs().max()))
+        check(bitwise, f"cost-only LM {m}: the cost differs from the full instance's: "
+                       f"{(cost - full).abs().max().item():.3e}")
+        check(dev <= LM_TOL, f"cost-only LM {m}: cost deviates from plain by {dev:.3e} > {LM_TOL}")
+        check(not G.any() and not H.any(), f"cost-only LM {m}: G or H is not zero")
+        cam, grav = cams[m].data.contiguous(), gravity.vec3d.contiguous()
+        ms = cuda_ms(lambda: lm_ops.launch_cost(obs, cam, grav, m, w, cfgs[m]))
+        plain_ms = cuda_ms(lambda: lm_ops.lm_system_plain(obs, cams[m], gravity, h, w, cfgs[m],
+                                                          with_system=False))
+        nbytes = sum(t.numel() * t.element_size() for t in obs.values()) + (
+            cam.numel() + grav.numel() + B) * 4
+        flops = LM_COST_FLOPS_PER_PIXEL[m] * B * N
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        per_model[m] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "cost_equals_full_instance": bitwise, "rel_dev_plain": dev}
+        log(f"lm kernel, cost only, {m} B={B} N={N}: cost bitwise equal to the full instance's "
+            f"{bitwise}, relative deviation from plain {dev:.3e}; {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} "
+            f"GFLOP -> {t_ops:.4f} ms")
+    return {"launches": launches, "max_abs_err": max_abs, **{k: per_model["pinhole"][k] for k in
+            ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+            "per_model": per_model}
+
+
 def device_kernels(fn) -> list:
     """Names of the device kernels one fn() call runs, from a torch.profiler trace."""
     fn()
@@ -522,8 +635,10 @@ def lm_phase(calib, calib_h, images: np.ndarray, images_d: np.ndarray,
     latency = launch_latency()
     log(f"launch latency, one-element kernel: {latency['graph_ms']:.4f} ms a launch in a CUDA "
         f"graph, {latency['eager_ms']:.4f} ms eager")
+    cost_only = lm_cost_phase(obs, camera, gravity, h, w)
     return {"max_abs_err": max_abs, **per_model["pinhole"], "library_ms": None,
-            "per_model": per_model, **config, "launch_latency_ms": latency}
+            "per_model": per_model, **config, "launch_latency_ms": latency,
+            "cost_only": cost_only}
 
 
 def nmf_phase(calib, images: np.ndarray) -> dict:
@@ -1376,6 +1491,235 @@ def loop_phase(weights: dict, card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- generate phase
+
+def render_check(task: dict, pano_name: str, pano: np.ndarray, rows: list,
+                 crops: torch.Tensor, crops_cpu: torch.Tensor) -> dict:
+    """The card's render against the CPU's, in its two parts: where each crop pixel
+    samples the panorama (the card's coordinates against the CPU's, on the sphere,
+    pano.sample_distance), and the sampling (the card's crops against the CPU's sampler
+    at the card's coordinates). The crops' value difference is reported."""
+    _, yaw = gen_lib.sample_rows(pano_name, task)
+    size, model = pano.shape[:2], task["camera_model"]
+    card = pano_lib.pano_coordinates(size, *gen_lib.row_views(rows, yaw, model, "cuda"))
+    card = tuple(t.cpu() for t in card)
+    host = pano_lib.pano_coordinates(size, *gen_lib.row_views(rows, yaw, model, "cpu"))
+    sampled = pano_lib._bilinear_sample(torch.from_numpy(pano), *card).reshape(crops.shape)
+    diff = (crops.cpu() - crops_cpu).abs()
+    return {"coord_px": float(pano_lib.sample_distance(card, host, size).max()),
+            "sampler": float((crops.cpu() - sampled).abs().max()),
+            "value_max": float(diff.max()),
+            "value_share_over": float((diff.amax(-1) > RENDER_VALUE_REPORT).float().mean())}
+
+
+def generate_phase(calib, card: str) -> dict:
+    """Dataset generation through the port's own per-pano functions (data/generate.py):
+    each GENERATE_SETS configuration's panoramas synthesised on the host (timed), their
+    rows sampled and crops rendered on the card (CUDA events) and on the CPU; the card's
+    crops against the CPU's, rows equal. Then the 320x320 crops calibrated on the r05
+    weights (batch 16, each set's camera model) as a path of its own, against the rows'
+    truth; median roll and pitch errors within GENERATE_ANGLE_TOL."""
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    out, crops_by_set = {}, {}
+    for name, (n_panos, model, seed, overrides) in GENERATE_SETS.items():
+        conf = gen_lib.dataset_conf(**overrides)
+        synth_s, render_ms, cpu_s, devs, rows_all, crops_all = [], [], [], [], [], []
+        for src in gen_lib.pano_sources(None, n_panos, seed):
+            task = {"pano": src, "split": "train", "conf": conf, "camera_model": model,
+                    "seed": seed}
+            t0 = time.perf_counter()
+            pano_name, pano = gen_lib.load_pano(task)
+            synth_s.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            rows, crops = gen_lib.render_pano(task, pano_name, pano, "cuda")
+            end.record()
+            torch.cuda.synchronize()
+            render_ms.append(start.elapsed_time(end))
+            t0 = time.perf_counter()
+            rows_cpu, crops_cpu = gen_lib.render_pano(task, pano_name, pano, "cpu")
+            cpu_s.append(time.perf_counter() - t0)
+            check(rows == rows_cpu, f"generate {name}: the card path's rows differ from the CPU's")
+            check(crops.shape == (conf["crops_per_pano"], conf["height"], conf["width"], 3)
+                  and crops.device.type == "cuda" and bool(torch.isfinite(crops).all()),
+                  f"generate {name}: crops {tuple(crops.shape)} on {crops.device}")
+            devs.append(render_check(task, pano_name, pano, rows, crops, crops_cpu))
+            rows_all += rows
+            crops_all.append(crops)
+        worst = {k: max(d[k] for d in devs) for k in devs[0]}
+        log(f"generate {name} ({n_panos} panos {conf['pano_height']}x{conf['pano_width']}, "
+            f"{conf['crops_per_pano']} crops of {conf['height']}x{conf['width']}, {model}, seed "
+            f"{seed}): host synthesis {[round(x, 3) for x in synth_s]} s a pano; card render "
+            f"{[round(x, 3) for x in render_ms]} ms a pano (CUDA events, the pano's upload "
+            f"included); CPU render {[round(x, 3) for x in cpu_s]} s; card against CPU: sample "
+            f"coordinates {worst['coord_px']:.3e} pano px apart on the sphere (bound "
+            f"{RENDER_COORD_TOL}), sampler {worst['sampler']:.3e} (bound {RENDER_SAMPLER_TOL}); "
+            f"crops' values at most {worst['value_max']:.3e} apart, {worst['value_share_over']:.2e} "
+            f"of a pano's pixels over {RENDER_VALUE_REPORT} (reported)")
+        check(worst["coord_px"] <= RENDER_COORD_TOL,
+              f"generate {name}: the card samples {worst['coord_px']:.3e} px from the CPU")
+        check(worst["sampler"] <= RENDER_SAMPLER_TOL,
+              f"generate {name}: the card's sampler deviates by {worst['sampler']:.3e}")
+        share = sum(render_ms) / 1e3 / (sum(render_ms) / 1e3 + sum(synth_s))
+        out[name] = {"synth_s": synth_s, "render_ms": render_ms, "cpu_render_s": cpu_s,
+                     **worst, "render_share": share}
+        crops_by_set[name] = (model, rows_all, torch.cat(crops_all))
+
+    # the 320x320 sets calibrated on the card, as a path of its own
+    zero_counts()
+    errors = {}
+    t0 = time.perf_counter()
+    for name, (model, rows, crops) in crops_by_set.items():
+        if crops.shape[1:3] != (GENERATE_CALIB_SIZE, GENERATE_CALIB_SIZE):
+            continue
+        preds = []
+        for i in range(0, len(rows), GENERATE_CALIB_BATCH):
+            res = calib.calibrate(crops[i:i + GENERATE_CALIB_BATCH].cpu().numpy(), batched=True,
+                                  camera_model=model)
+            preds.append(torch.stack([res["gravity"].roll, res["gravity"].pitch,
+                                      res["camera"].vfov], -1).cpu().double().numpy())
+        pred = np.degrees(np.concatenate(preds))
+        truth = np.array([[r["roll"], r["pitch"], r["vfov"]] for r in rows], np.float64)
+        wrap = lambda d: np.abs((d + 180.0) % 360.0 - 180.0)
+        errors[name] = np.stack([wrap(pred[:, 0] - np.degrees(read_roll(truth[:, 0], truth[:, 1]))),
+                                 np.abs(pred[:, 1] - np.degrees(truth[:, 1])),
+                                 np.abs(pred[:, 2] - np.degrees(truth[:, 2]))], -1)
+        log(f"generate {name}: {len(rows)} crops calibrated ({model}, batch "
+            f"{GENERATE_CALIB_BATCH}): median roll/pitch/vfov error "
+            f"{np.round(np.median(errors[name], 0), 4).tolist()} deg, max "
+            f"{np.round(errors[name].max(0), 3).tolist()}")
+    calib_s = time.perf_counter() - t0
+    counts = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches,
+              "lm_by_model": {k: n for k, n in lm_ops.lm_system.launches_by_model.items() if n}}
+    all_err = np.concatenate(list(errors.values()))
+    median = np.median(all_err, 0)
+    n_batches = sum(-(-len(crops_by_set[k][1]) // GENERATE_CALIB_BATCH) for k in errors)
+    log(f"generate: {len(all_err)} crops calibrated in {calib_s:.2f} s, launches "
+        f"{json.dumps(counts)}; median roll/pitch/vfov error {np.round(median, 4).tolist()} deg "
+        f"(gate: roll and pitch within {GENERATE_ANGLE_TOL})")
+    check(counts["nmf"] == n_batches and counts["lm_system"] == 31 * n_batches,
+          f"generate: each calibrate batch must launch the NMF once and the LM 31 times: {counts}")
+    check(len(all_err) == GENERATE_CALIB_CROPS, f"generate: {len(all_err)} crops calibrated")
+    check(median[0] <= GENERATE_ANGLE_TOL and median[1] <= GENERATE_ANGLE_TOL,
+          f"generate: median roll/pitch error {median[:2].tolist()} deg > {GENERATE_ANGLE_TOL}")
+    pool = generate_entry(crops_by_set["openpano_radial_v2"][1])
+    log(f"generate card: {card}")
+    return {"sets": out, "pool": pool, "median_error_deg": median.tolist(),
+            "median_error_deg_by_set": {k: np.median(v, 0).tolist() for k, v in errors.items()},
+            "calibrate_s": calib_s, "launches": counts,
+            "crops": {k: v[2] for k, v in crops_by_set.items()}}
+
+
+def generate_entry(radial_rows: list) -> dict:
+    """generate_dataset, the user's entry point, on the card with a pool of synthesis
+    workers (GENERATE_POOL_PANOS panoramas at openpano_radial_v2's configuration), the
+    JPEG writer replaced at the write_crops seam by an in-memory store (the card has no
+    PIL). Checks: every row's crop was rendered on the card and is finite, and the
+    train CSV's first panoramas' rows equal, as text, the rows of the per-pano run."""
+    written = {}
+
+    def store(rows, crops, img_dir):
+        check(crops.device.type == "cuda", f"generate_dataset rendered on {crops.device}")
+        written.update({r["fname"]: c for r, c in zip(rows, crops)})
+
+    out_dir = ROOT / ".smoke" / f"generate_{os.getpid()}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    saved = gen_lib.write_crops
+    gen_lib.write_crops = store
+    try:
+        t0 = time.perf_counter()
+        gen_lib.generate_dataset(str(out_dir), n_panos=GENERATE_POOL_PANOS,
+                                 camera_model="simple_radial", seed=2,
+                                 workers=GENERATE_POOL_WORKERS, height=320, width=320,
+                                 pano_height=640, pano_width=1280)
+        seconds = time.perf_counter() - t0
+    finally:
+        gen_lib.write_crops = saved
+    csv_rows = {}
+    for split in ("train", "val", "test"):
+        with open(out_dir / f"{split}.csv", newline="") as fh:
+            csv_rows[split] = list(csv.DictReader(fh))
+    names = [r["fname"] for rows in csv_rows.values() for r in rows]
+    check(sorted(names) == sorted(written) and len(names) == 16 * GENERATE_POOL_PANOS,
+          f"generate_dataset: {len(names)} rows, {len(written)} crops")
+    check(all(bool(torch.isfinite(c).all()) for c in written.values()),
+          "generate_dataset: a crop is not finite")
+    same = [{k: str(v) for k, v in r.items()} for r in radial_rows]
+    check(csv_rows["train"][:len(same)] == same,
+          "generate_dataset: the train CSV differs from the per-pano run's rows")
+    log(f"generate_dataset on the card, {GENERATE_POOL_PANOS} panoramas at openpano_radial_v2's "
+        f"configuration, {GENERATE_POOL_WORKERS} synthesis workers: {seconds:.2f} s, "
+        f"{len(names)} rows in {[len(v) for v in csv_rows.values()]} (train, val, test); the "
+        f"train CSV's first {len(same)} rows equal the per-pano run's as text")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"seconds": seconds, "rows": len(names)}
+
+
+# ---------------------------------------------------------------- demo phase
+
+def demo_phase(calib, crops: torch.Tensor, card: str) -> dict:
+    """InteractiveDemo.process_frame on DEMO_FRAMES generated crops for each of
+    DEMO_MODELS with every overlay on, as a path of its own (counts set to 0 around
+    it): frames finite and of the crop's shape; the card's undistort_image and overlays
+    against the same camera and gravity moved to the CPU (RENDER_TOL in value; at most
+    DEMO_PIXEL_SHARE of a frame's pixels over it); milliseconds per frame."""
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    frames = crops[:DEMO_FRAMES].cpu().numpy()
+    demo = demo_lib.InteractiveDemo(calib)
+    demo.toggles = dict.fromkeys(demo.toggles, True)
+    for model in DEMO_MODELS:  # warm each model's shapes outside the counted run
+        demo.camera_model = model
+        demo.process_frame(frames[0])
+    zero_counts()
+    outs, frame_ms = {}, {}
+    for model in DEMO_MODELS:
+        demo.camera_model = model
+        for i, frame in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[model, i] = demo.process_frame(frame)
+            frame_ms[model, i] = (time.perf_counter() - t0) * 1e3
+    counts = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches,
+              "lm_by_model": {k: n for k, n in lm_ops.lm_system.launches_by_model.items() if n}}
+    n_frames = len(outs)
+    check(counts["nmf"] == n_frames and counts["lm_by_model"] == {
+        m: 31 * len(frames) for m in DEMO_MODELS},
+        f"demo: each frame must launch the NMF once and its model's LM 31 times: {counts}")
+
+    undistort_dev, pixel_share, overlay_ms = 0.0, 0.0, []
+    for (model, i), (out, result) in outs.items():
+        check(out.shape == frames[i].shape and bool(np.isfinite(out).all()),
+              f"demo {model}: frame {out.shape} not finite or of the wrong shape")
+        check(result["camera"].f.device.type == "cuda", "demo: the result is not on the card")
+        cpu = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in result.items()
+               if k not in ("camera", "gravity")}
+        cam, grav = result["camera"], result["gravity"]
+        cpu["camera"] = Camera(*(t.cpu() for t in (cam.size, cam.f, cam.c, cam.k)), cam.model)
+        cpu["gravity"] = Gravity(grav.vec3d.cpu())
+        t0 = time.perf_counter()
+        card_frame = overlays_lib.render_overlays(frames[i], result, demo.toggles)
+        overlay_ms.append((time.perf_counter() - t0) * 1e3)
+        ref = overlays_lib.render_overlays(frames[i], cpu, demo.toggles)
+        pixel_share = max(pixel_share, float((np.abs(card_frame - ref) > RENDER_TOL).any(-1).mean()))
+        img = torch.from_numpy(frames[i])[None]
+        und = cam[None].undistort_image(img.to(cam.f.device)).cpu()
+        undistort_dev = max(undistort_dev, float((und - cpu["camera"][None].undistort_image(img)
+                                                  ).abs().max()))
+    log(f"demo: {n_frames} frames ({len(frames)} crops x {DEMO_MODELS}), every overlay on; "
+        f"launches {json.dumps(counts)}; card against CPU: undistort_image {undistort_dev:.3e} "
+        f"(bound {RENDER_TOL}), overlay frames at most {pixel_share:.5f} of pixels over "
+        f"{RENDER_TOL} (bound {DEMO_PIXEL_SHARE}); ms a frame (calibrate and overlays) "
+        f"{json.dumps({m: [round(frame_ms[m, i], 2) for i in range(len(frames))] for m in DEMO_MODELS})}"
+        f", overlays alone median {np.median(overlay_ms):.2f} ms; card {card}")
+    check(undistort_dev <= RENDER_TOL, f"demo: undistort_image deviates by {undistort_dev:.3e}")
+    check(pixel_share <= DEMO_PIXEL_SHARE, f"demo: {pixel_share:.5f} of an overlay frame differs")
+    return {"launches": counts, "frame_ms": {m: [frame_ms[m, i] for i in range(len(frames))]
+                                             for m in DEMO_MODELS},
+            "overlay_ms_median": float(np.median(overlay_ms)), "undistort_dev": undistort_dev,
+            "overlay_pixel_share": pixel_share}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1465,14 +1809,19 @@ def main() -> int:
     evaluation = eval_phase(weights, calib, card)
     train = train_phase(weights, card)
     loop = loop_phase(weights, card)
+    generate = generate_phase(calib, card)
+    demo = demo_phase(calib, generate["crops"]["openpano_radial_v2"], card)
 
     by_model = {m: sum(c["lm_system_by_model"].get(m, 0) for c in counts.values())
-                + evaluation["lm_by_model"][m] for m in lm_ops.MODEL_IDS}
+                + evaluation["lm_by_model"][m] + generate["launches"]["lm_by_model"].get(m, 0)
+                + demo["launches"]["lm_by_model"].get(m, 0) for m in lm_ops.MODEL_IDS}
     by_model["pinhole"] += train["launches"]["lm_system"] + loop["launches"]["lm_system"]
     for model, entry in lm["per_model"].items():
         entry["launches"] = by_model[model]
     paths = lambda name: {"serving a-e": launches[name], "eval": evaluation["launches"][name],
-                          "train": train["launches"][name], "loop": loop["launches"][name]}
+                          "train": train["launches"][name], "loop": loop["launches"][name],
+                          "generate": generate["launches"][name], "demo": demo["launches"][name]}
+    cost_only = lm.pop("cost_only")
     kernels = [
         {"name": "lm_system", "route": "cuda", "source": "geocalib_tpu_torch/csrc/lm_system.cu",
          "replaces": "geocalib_tpu/ops/lm_kernel.py:195",
@@ -1480,6 +1829,10 @@ def main() -> int:
          "launches_by_path": paths("lm_system"), **lm,
          "eval_shape": {k.split()[1]: v for k, v in evaluation["at_shape"].items() if " " in k},
          "vjp": {**train["vjp"], "replaces": "geocalib_tpu/ops/lm_kernel.py:221-249"}},
+        {"name": "lm_system_cost_only", "route": "cuda",
+         "source": "geocalib_tpu_torch/csrc/lm_system.cu",
+         "replaces": "geocalib_tpu/ops/lm_kernel.py:195", "instance": "with_system=False",
+         "launches_by_path": {"lm phase": cost_only["launches"]}, **cost_only},
         {"name": "nmf", "route": "cuda", "source": "geocalib_tpu_torch/csrc/nmf.cu",
          "replaces": "geocalib_tpu/ops/nmf_kernel.py:86", "launches": sum(paths("nmf").values()),
          "launches_by_path": paths("nmf"), **nmf, "eval_shape": evaluation["at_shape"]["nmf"]},
@@ -1492,6 +1845,8 @@ def main() -> int:
                     "card": card}, default=str))
     log(json.dumps({"train": train_line, "card": card}, default=str))
     log(json.dumps({"loop": loop, "card": card}, default=str))
+    log(json.dumps({"generate": {k: v for k, v in generate.items() if k != "crops"},
+                    "demo": demo, "card": card}, default=str))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -41,6 +41,11 @@
 //   shared memory in rank order, adds them in double, and writes G, both
 //   triangles of H and the mean cost.
 //
+// The cost-only instance (lm_cost_kernel, the TPU kernel's with_system=False)
+// is the same body with the Jacobian and normal-equation work compiled out: it
+// sums the cost in the same order (per thread, warp, block, cluster), so its
+// cost equals the full instance's bit for bit, and it writes the cost only.
+//
 // The camera model (0: pinhole, 1: simple_radial, 2: radial,
 // 3: simple_divisional) and the set of observation planes present are
 // template parameters; the parameter mask, the manifold (given as the basis
@@ -76,9 +81,9 @@ struct LMArgs {
   const float* lat_conf;
   const float* cam;   // (B, 8): w, h, fx, fy, cx, cy, k1, k2
   const float* grav;  // (B, 3)
-  const float* M;     // (B, 6): manifold basis J_abc2delta, row-major (3, 2)
-  float* G;           // (B, P)
-  float* H;           // (B, P, P)
+  const float* M;     // (B, 6): manifold basis J_abc2delta, row-major (3, 2); unused by the cost
+  float* G;           // (B, P); unused by the cost
+  float* H;           // (B, P, P); unused by the cost
   float* cost;        // (B,)
   int N, w, per, loss_id, mask_bits, log_focal, vec;
   float up_a2, lat_a2;
@@ -232,8 +237,9 @@ struct Obs {
   float ux, uy, ls, uc, lc;
 };
 
-// Adds one pixel at normalised (u, v), with gx, gy = d(u, v)/d(focal step), to acc.
-template <int MODEL, int F, int P, int S>
+// Adds one pixel at normalised (u, v), with gx, gy = d(u, v)/d(focal step), to acc:
+// with SYS its G and H terms and its cost, without SYS (S = 1) its cost only.
+template <int MODEL, int F, int P, int S, bool SYS>
 __device__ __forceinline__ void pixel(float* acc, const Lane& l, const LMArgs& a, float u,
                                       float v, float gx, float gy, const Obs& o) {
   using D = Dist<MODEL>;
@@ -270,49 +276,50 @@ __device__ __forceinline__ void pixel(float* acc, const Lane& l, const LMArgs& a
       wgt *= o.uc;
     }
     acc[S - 1] += rho;
-
-    const float inv3 = inv * inv * inv;
-    const float n11 = inv - tx * tx * inv3;
-    const float n12 = -tx * ty * inv3;
-    const float n22 = inv - ty * ty * inv3;
-    float J0[P], J1[P];
-    // gravity block: D @ [[1, 0, -u], [0, 1, -v]] @ M
-    const float t02 = -(D11 * u + D12 * v), t12 = -(D12 * u + D22 * v);
+    if constexpr (SYS) {  // G and H terms
+      const float inv3 = inv * inv * inv;
+      const float n11 = inv - tx * tx * inv3;
+      const float n12 = -tx * ty * inv3;
+      const float n22 = inv - ty * ty * inv3;
+      float J0[P], J1[P];
+      // gravity block: D @ [[1, 0, -u], [0, 1, -v]] @ M
+      const float t02 = -(D11 * u + D12 * v), t12 = -(D12 * u + D22 * v);
 #pragma unroll
-    for (int d = 0; d < 2; ++d) {
-      const float td0 = D11 * l.m[0][d] + D12 * l.m[1][d] + t02 * l.m[2][d];
-      const float td1 = D12 * l.m[0][d] + D22 * l.m[1][d] + t12 * l.m[2][d];
-      J0[d] = n11 * td0 + n12 * td1;
-      J1[d] = n12 * td0 + n22 * td1;
-    }
-    // focal block: J_t2uv @ d(u, v)/d(focal step)
-    float tf0 = -gc * gx, tf1 = -gc * gy;
-    if constexpr (kDist) {
-      const float ox = phi * u, oy = phi * v;
-      const float J00 = px * ox + inner * (phi + 2.f * dphi * u * u) + ox * px - gc * D11;
-      const float J01 = px * oy + inner * (2.f * dphi * u * v) + ox * py - gc * D12;
-      const float J10 = py * ox + inner * (2.f * dphi * v * u) + oy * px - gc * D12;
-      const float J11 = py * oy + inner * (phi + 2.f * dphi * v * v) + oy * py - gc * D22;
-      tf0 = J00 * gx + J01 * gy;
-      tf1 = J10 * gx + J11 * gy;
-    }
-    J0[2] = n11 * tf0 + n12 * tf1;
-    J1[2] = n12 * tf0 + n22 * tf1;
-    // distortion block
-    if constexpr (kDist) {
-      float dk[KA], dpk[KA];
-      D::ds_dk(k1, k2, r2, dk);
-      D::dphi_dk(k1, k2, r2, dpk);
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        const float pre0 = px * dk[i] + dpk[i] * inner * u;
-        const float pre1 = py * dk[i] + dpk[i] * inner * v;
-        J0[3 + i] = n11 * pre0 + n12 * pre1;
-        J1[3 + i] = n12 * pre0 + n22 * pre1;
+      for (int d = 0; d < 2; ++d) {
+        const float td0 = D11 * l.m[0][d] + D12 * l.m[1][d] + t02 * l.m[2][d];
+        const float td1 = D12 * l.m[0][d] + D22 * l.m[1][d] + t12 * l.m[2][d];
+        J0[d] = n11 * td0 + n12 * td1;
+        J1[d] = n12 * td0 + n22 * td1;
       }
+      // focal block: J_t2uv @ d(u, v)/d(focal step)
+      float tf0 = -gc * gx, tf1 = -gc * gy;
+      if constexpr (kDist) {
+        const float ox = phi * u, oy = phi * v;
+        const float J00 = px * ox + inner * (phi + 2.f * dphi * u * u) + ox * px - gc * D11;
+        const float J01 = px * oy + inner * (2.f * dphi * u * v) + ox * py - gc * D12;
+        const float J10 = py * ox + inner * (2.f * dphi * v * u) + oy * px - gc * D12;
+        const float J11 = py * oy + inner * (phi + 2.f * dphi * v * v) + oy * py - gc * D22;
+        tf0 = J00 * gx + J01 * gy;
+        tf1 = J10 * gx + J11 * gy;
+      }
+      J0[2] = n11 * tf0 + n12 * tf1;
+      J1[2] = n12 * tf0 + n22 * tf1;
+      // distortion block
+      if constexpr (kDist) {
+        float dk[KA], dpk[KA];
+        D::ds_dk(k1, k2, r2, dk);
+        D::dphi_dk(k1, k2, r2, dpk);
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+          const float pre0 = px * dk[i] + dpk[i] * inner * u;
+          const float pre1 = py * dk[i] + dpk[i] * inner * v;
+          J0[3 + i] = n11 * pre0 + n12 * pre1;
+          J1[3 + i] = n12 * pre0 + n22 * pre1;
+        }
+      }
+      accumulate<P>(acc, J0, rx, wgt);
+      accumulate<P>(acc, J1, ry, wgt);
     }
-    accumulate<P>(acc, J0, rx, wgt);
-    accumulate<P>(acc, J1, ry, wgt);
   }
 
   if (F & kLat) {
@@ -330,25 +337,26 @@ __device__ __forceinline__ void pixel(float* acc, const Lane& l, const LMArgs& a
       wgt *= o.lc;
     }
     acc[S - 1] += rho;
-
-    const float inv3 = inv * inv * inv;
-    const float e0 = ga * inv - ud * gw * inv3;
-    const float e1 = gb * inv - vd * gw * inv3;
-    float J[P];
+    if constexpr (SYS) {  // G and H terms
+      const float inv3 = inv * inv * inv;
+      const float e0 = ga * inv - ud * gw * inv3;
+      const float e1 = gb * inv - vd * gw * inv3;
+      float J[P];
 #pragma unroll
-    for (int d = 0; d < 2; ++d) J[d] = (ud * l.m[0][d] + vd * l.m[1][d] + l.m[2][d]) * inv;
-    const float dot = u * gx + v * gy;
-    const float jw0 = su * gx + 2.f * dsu * u * dot;
-    const float jw1 = su * gy + 2.f * dsu * v * dot;
-    J[2] = e0 * jw0 + e1 * jw1;
-    if constexpr (kDist) {
-      float gam[KA];
-      D::dsu_dk(k1, k2, r2, gam);
-      const float ev = e0 * u + e1 * v;
+      for (int d = 0; d < 2; ++d) J[d] = (ud * l.m[0][d] + vd * l.m[1][d] + l.m[2][d]) * inv;
+      const float dot = u * gx + v * gy;
+      const float jw0 = su * gx + 2.f * dsu * u * dot;
+      const float jw1 = su * gy + 2.f * dsu * v * dot;
+      J[2] = e0 * jw0 + e1 * jw1;
+      if constexpr (kDist) {
+        float gam[KA];
+        D::dsu_dk(k1, k2, r2, gam);
+        const float ev = e0 * u + e1 * v;
 #pragma unroll
-      for (int i = 0; i < K; ++i) J[3 + i] = gam[i] * ev;
+        for (int i = 0; i < K; ++i) J[3 + i] = gam[i] * ev;
+      }
+      accumulate<P>(acc, J, rl, wgt);
     }
-    accumulate<P>(acc, J, rl, wgt);
   }
 }
 
@@ -393,10 +401,12 @@ struct Planes {
   }
 };
 
-template <int MODEL, int F>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) lm_system_kernel(LMArgs a) {
+// One lane's sums over its pixels, reduced in a fixed order: G, H and the cost with
+// SYS, the cost alone without.
+template <int MODEL, int F, bool SYS>
+__device__ __forceinline__ void lm_body(const LMArgs& a) {
   constexpr int P = 3 + Dist<MODEL>::K;
-  constexpr int S = P + P * (P + 1) / 2 + 1;
+  constexpr int S = SYS ? P + P * (P + 1) / 2 + 1 : 1;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int b = blockIdx.y;
@@ -414,10 +424,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lm_system_kernel(LMArgs 
   l.gc = a.grav[b * 3 + 2];
   l.inv_up_a2 = 1.f / a.up_a2;
   l.inv_lat_a2 = 1.f / a.lat_a2;
+  if constexpr (SYS) {
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
+    for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int d = 0; d < 2; ++d) l.m[k][d] = a.M[b * 6 + 2 * k + d];
+      for (int d = 0; d < 2; ++d) l.m[k][d] = a.M[b * 6 + 2 * k + d];
+  }
 
   float acc[S];
 #pragma unroll
@@ -461,7 +473,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lm_system_kernel(LMArgs 
           u = (static_cast<float>(c) - l.cx) / l.fx;
           gx = a.log_focal ? -u : -u / l.fx;
         }
-        pixel<MODEL, F, P, S>(acc, l, a, u, v, gx, gy, obs.at(j));
+        pixel<MODEL, F, P, S, SYS>(acc, l, a, u, v, gx, gy, obs.at(j));
         if (++c == a.w) {
           c = 0;
           ++r;
@@ -507,27 +519,48 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lm_system_kernel(LMArgs 
   }
   cluster.sync();  // the other blocks keep their shared memory until block 0 has read it
   if (rank == 0 && threadIdx.x == 0) {
-    float mask[P];
-    for (int p = 0; p < P; ++p) mask[p] = ((a.mask_bits >> p) & 1) ? 1.f : 0.f;
-    int k = P;
-    for (int p = 0; p < P; ++p) {
-      a.G[b * P + p] = total[p] * mask[p];
-      for (int q = p; q < P; ++q) {
-        a.H[(b * P + p) * P + q] = total[k] * mask[p] * mask[q];
-        a.H[(b * P + q) * P + p] = total[k] * mask[p] * mask[q];
-        ++k;
+    if constexpr (SYS) {
+      float mask[P];
+      for (int p = 0; p < P; ++p) mask[p] = ((a.mask_bits >> p) & 1) ? 1.f : 0.f;
+      int k = P;
+      for (int p = 0; p < P; ++p) {
+        a.G[b * P + p] = total[p] * mask[p];
+        for (int q = p; q < P; ++q) {
+          a.H[(b * P + p) * P + q] = total[k] * mask[p] * mask[q];
+          a.H[(b * P + q) * P + p] = total[k] * mask[p] * mask[q];
+          ++k;
+        }
       }
     }
     a.cost[b] = total[S - 1];
   }
 }
 
-// A non-portable cluster size (above 8) is allowed per kernel, once.
 template <int MODEL, int F>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) lm_system_kernel(LMArgs a) {
+  lm_body<MODEL, F, true>(a);
+}
+
+// The cost-only instance: no Jacobian, no G or H.
+template <int MODEL, int F>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) lm_cost_kernel(LMArgs a) {
+  lm_body<MODEL, F, false>(a);
+}
+
+using KernelFn = void (*)(LMArgs);
+
+template <int MODEL, int F, bool SYS>
+KernelFn kernel_fn() {
+  if constexpr (SYS) return lm_system_kernel<MODEL, F>;
+  else return lm_cost_kernel<MODEL, F>;
+}
+
+// A non-portable cluster size (above 8) is allowed per kernel, once.
+template <int MODEL, int F, bool SYS>
 cudaError_t allow_cluster() {
   if (kCluster <= 8) return cudaSuccess;
   static const cudaError_t allowed = cudaFuncSetAttribute(
-      lm_system_kernel<MODEL, F>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      kernel_fn<MODEL, F, SYS>(), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return allowed;
 }
 
@@ -547,22 +580,22 @@ cudaLaunchConfig_t launch_config(int B, int w, cudaStream_t stream, cudaLaunchAt
   return cfg;
 }
 
-template <int MODEL, int F>
+template <int MODEL, int F, bool SYS>
 cudaError_t launch(const LMArgs& a, int B, cudaStream_t stream) {
-  const cudaError_t allowed = allow_cluster<MODEL, F>();
+  const cudaError_t allowed = allow_cluster<MODEL, F, SYS>();
   if (allowed != cudaSuccess) return allowed;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(B, a.w, stream, attr);
-  return cudaLaunchKernelEx(&cfg, lm_system_kernel<MODEL, F>, a);
+  return cudaLaunchKernelEx(&cfg, kernel_fn<MODEL, F, SYS>(), a);
 }
 
 // Launches the instance for one plane set; cudaErrorInvalidValue for a set with no instance.
-template <int MODEL>
+template <int MODEL, bool SYS>
 cudaError_t dispatch_flags(const LMArgs& a, int flags, int B, cudaStream_t s) {
   switch (flags) {
 #define GC_CASE(F) \
   case F:          \
-    return launch<MODEL, F>(a, B, s);
+    return launch<MODEL, F, SYS>(a, B, s);
     // the plane sets the C entry can form: confidences only beside their field
     GC_CASE(1) GC_CASE(2) GC_CASE(3) GC_CASE(5) GC_CASE(7) GC_CASE(10) GC_CASE(11) GC_CASE(15)
 #undef GC_CASE
@@ -576,6 +609,35 @@ constexpr int kNumParams[kNumModels] = {3 + Dist<0>::K, 3 + Dist<1>::K, 3 + Dist
 
 bool aligned16(const float* p) { return !p || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+int plane_flags(const float* up_x, const float* up_y, const float* lat_sin,
+                const float* up_conf, const float* lat_conf) {
+  return (up_x && up_y ? kUp : 0) | (lat_sin ? kLat : 0) | (up_x && up_conf ? kUpConf : 0) |
+         (lat_sin && lat_conf ? kLatConf : 0);
+}
+
+// The arguments both entries share: each block's range (a multiple of kVec pixels, from
+// N alone) and whether the planes take 16-byte loads.
+LMArgs lm_args(const float* up_x, const float* up_y, const float* lat_sin, const float* up_conf,
+               const float* lat_conf, const float* cam, const float* grav, int N, int w,
+               int loss_id, float up_scale, float lat_scale) {
+  const int per = ((N + kCluster - 1) / kCluster + kVec - 1) / kVec * kVec;
+  const int vec = N % kVec == 0 && aligned16(up_x) && aligned16(up_y) && aligned16(lat_sin) &&
+                  aligned16(up_conf) && aligned16(lat_conf);
+  return LMArgs{up_x, up_y, lat_sin, up_conf, lat_conf, cam, grav, nullptr, nullptr, nullptr,
+                nullptr, N, w, per, loss_id, 0, 0, vec, up_scale * up_scale,
+                lat_scale * lat_scale};
+}
+
+template <bool SYS>
+cudaError_t dispatch(const LMArgs& a, int model, int flags, int B, cudaStream_t s) {
+  switch (model) {
+    case 0: return dispatch_flags<0, SYS>(a, flags, B, s);
+    case 1: return dispatch_flags<1, SYS>(a, flags, B, s);
+    case 2: return dispatch_flags<2, SYS>(a, flags, B, s);
+    default: return dispatch_flags<3, SYS>(a, flags, B, s);
+  }
+}
+
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue, and launches nothing, for a
@@ -588,26 +650,38 @@ extern "C" int gc_lm_system(const float* up_x, const float* up_y, const float* l
                             float lat_scale, int mask_bits, int log_focal, void* stream) {
   // clear a stale error so the return value speaks of this launch only
   cudaGetLastError();
-  const int flags = (up_x && up_y ? kUp : 0) | (lat_sin ? kLat : 0) |
-                    (up_x && up_conf ? kUpConf : 0) | (lat_sin && lat_conf ? kLatConf : 0);
+  const int flags = plane_flags(up_x, up_y, lat_sin, up_conf, lat_conf);
   if (!(flags & (kUp | kLat)) || B <= 0 || N <= 0 || w <= 0 || model < 0 ||
       model >= kNumModels || P != kNumParams[model])
     return static_cast<int>(cudaErrorInvalidValue);
-  // each block's range: a multiple of kVec pixels, from N alone
-  const int per = ((N + kCluster - 1) / kCluster + kVec - 1) / kVec * kVec;
-  const int vec = N % kVec == 0 && aligned16(up_x) && aligned16(up_y) && aligned16(lat_sin) &&
-                  aligned16(up_conf) && aligned16(lat_conf);
-  LMArgs a{up_x, up_y, lat_sin, up_conf, lat_conf, cam, grav, M, G, H, cost,
-           N, w, per, loss_id, mask_bits, log_focal, vec, up_scale * up_scale,
-           lat_scale * lat_scale};
-  auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (model) {
-    case 0: err = dispatch_flags<0>(a, flags, B, s); break;
-    case 1: err = dispatch_flags<1>(a, flags, B, s); break;
-    case 2: err = dispatch_flags<2>(a, flags, B, s); break;
-    default: err = dispatch_flags<3>(a, flags, B, s); break;
-  }
+  LMArgs a = lm_args(up_x, up_y, lat_sin, up_conf, lat_conf, cam, grav, N, w, loss_id, up_scale,
+                     lat_scale);
+  a.M = M;
+  a.G = G;
+  a.H = H;
+  a.cost = cost;
+  a.mask_bits = mask_bits;
+  a.log_focal = log_focal;
+  const cudaError_t err = dispatch<true>(a, model, flags, B, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cost-only instance: the mean cost (B,) alone, summed as gc_lm_system sums it, so
+// the two costs are the same bits. Refuses as gc_lm_system does.
+extern "C" int gc_lm_cost(const float* up_x, const float* up_y, const float* lat_sin,
+                          const float* up_conf, const float* lat_conf, const float* cam,
+                          const float* grav, float* cost, int B, int N, int w, int model,
+                          int loss_id, float up_scale, float lat_scale, void* stream) {
+  cudaGetLastError();
+  const int flags = plane_flags(up_x, up_y, lat_sin, up_conf, lat_conf);
+  if (!(flags & (kUp | kLat)) || B <= 0 || N <= 0 || w <= 0 || model < 0 ||
+      model >= kNumModels)
+    return static_cast<int>(cudaErrorInvalidValue);
+  LMArgs a = lm_args(up_x, up_y, lat_sin, up_conf, lat_conf, cam, grav, N, w, loss_id, up_scale,
+                     lat_scale);
+  a.cost = cost;
+  const cudaError_t err = dispatch<false>(a, model, flags, B, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -618,7 +692,7 @@ extern "C" int gc_lm_system(const float* up_x, const float* up_y, const float* l
 extern "C" int gc_lm_config(int* threads, int* cluster, int* active_clusters, int w) {
   *threads = kThreads;
   *cluster = kCluster;
-  cudaError_t err = allow_cluster<0, 15>();
+  cudaError_t err = allow_cluster<0, 15, true>();
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(1, w, nullptr, attr);
   if (err == cudaSuccess)

@@ -5,9 +5,10 @@ directory, download URL, eval camera model); ``prepare_benchmark`` finds the
 data under data/<name> or fetches and extracts the released zip, whose
 ``images/`` and CSV of GT rows are what the datasets read. Variable-size
 downloads go through the shape-bucketed BenchmarkPipeline, generated sets
-through the SimplePipeline. The generator of the ``openpano*`` sets is not
-ported yet, so the port evaluates them only where their CSV and images are
-already on disk (``data/openpano_synth`` is committed).
+through the SimplePipeline. A missing ``openpano_synth`` is generated from
+procedural panoramas (``data/generate.py``, 24 panoramas, 320² crops, as the
+JAX package does); the other ``openpano*`` sets need OpenPano panoramas, and
+their error names the generator's command.
 
 CLI (the card by default; --device cpu runs the plain versions on the CPU):
     python -m geocalib_tpu_torch.eval.benchmarks openpano_synth \\
@@ -71,18 +72,26 @@ BENCHMARKS: Dict[str, Benchmark] = {
 }
 
 
-def prepare_benchmark(name: str, data_path: Path = DATA_PATH) -> Path:
-    """The benchmark's directory; downloads and extracts a released zip if needed."""
+def prepare_benchmark(name: str, data_path: Path = DATA_PATH, device=None) -> Path:
+    """The benchmark's directory; generates ``openpano_synth`` (rendering on
+    `device`, the card by default) or downloads and extracts a released zip if needed."""
     bench = BENCHMARKS[name]
     target = data_path / bench.name
     if (target / bench.csv_name).exists():
         return target
 
+    if bench.name == "openpano_synth":
+        from geocalib_tpu_torch.data.generate import generate_dataset
+
+        generate_dataset(str(target), n_panos=24, camera_model=bench.camera_model, height=320,
+                         width=320, device=device)
+        return target
+
     if bench.url is None:
         raise FileNotFoundError(
-            f"benchmark {name!r} has no {target / bench.csv_name}, and its generator "
-            f"(geocalib_tpu.data.generate) is not ported to geocalib_tpu_torch yet; generate "
-            f"the set with the JAX package into {target}"
+            f"benchmark {name!r} must be generated from panoramas first; run "
+            f"python -m geocalib_tpu_torch.data.generate --out_dir {target} "
+            f"--pano_dir <openpano panos>"
         )
 
     if bench.requires_terms:
@@ -118,7 +127,7 @@ def run_benchmark(name: str, weights=None, data_path: Path = DATA_PATH,
     from geocalib_tpu_torch.eval.pipeline import evaluate_benchmark, evaluate_real_benchmark
 
     bench = BENCHMARKS[name]
-    target = prepare_benchmark(name, data_path)
+    target = prepare_benchmark(name, data_path, device)
     exp = str(experiment_dir) if experiment_dir else None
     if bench.variable_size:
         return evaluate_real_benchmark(weights, str(target), camera_model=bench.camera_model,

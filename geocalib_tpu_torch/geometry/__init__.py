@@ -10,6 +10,7 @@ from geocalib_tpu_torch.geometry.gravity import Gravity
 from geocalib_tpu_torch.geometry.manifolds import EuclideanManifold, SphericalManifold
 from geocalib_tpu_torch.geometry.perspective_fields import (
     J_perspective_field,
+    get_horizon_line,
     get_latitude_field,
     get_perspective_field,
     get_up_field,
@@ -24,6 +25,7 @@ __all__ = [
     "EuclideanManifold",
     "SphericalManifold",
     "J_perspective_field",
+    "get_horizon_line",
     "get_latitude_field",
     "get_perspective_field",
     "get_up_field",

@@ -340,6 +340,20 @@ class Camera:
         norm = torch.linalg.norm(p3d, dim=-1, keepdim=True)
         return p3d / torch.clamp(norm, min=1e-12)
 
+    def undistort_image(self, img: Tensor) -> Tensor:
+        """Remove the lens distortion from an image batch (B, h, w, C): each output
+        pixel's normalised coordinates are distorted, and the source is sampled there
+        bilinearly (the panorama renderer's sampler, as in the JAX package)."""
+        from geocalib_tpu_torch.data.pano import _bilinear_sample
+
+        B, h, w = img.shape[:3]
+        uv = self.normalize(self.pixel_coordinates(h, w))
+        duv, _ = self.distort(uv)
+        pts = self.denormalize(duv)  # (B, N, 2)
+        out = torch.stack([_bilinear_sample(img[b], pts[b, :, 0], pts[b, :, 1])
+                           for b in range(B)])
+        return out.reshape(B, h, w, img.shape[-1])
+
 
 # ---------------------------------------------------------------------- #
 # distortion model specs: scalar functions of k1, k2 (..., 1, 1) and r² (..., N, 1)

@@ -77,6 +77,21 @@ def get_perspective_field(camera: Camera, gravity: Gravity, h: int, w: int,
     return up, lat
 
 
+def get_horizon_line(camera: Camera, gravity: Gravity, relative: bool = True) -> Tensor:
+    """Heights where the horizon meets the left and right image borders, (B, 2);
+    divided by the image height when relative."""
+    e3 = torch.tensor([0.0, 0.0, 1.0], device=camera.f.device)
+    midpoint3 = (camera.K @ gravity.R) @ e3
+    midpoint = midpoint3[..., :2] / midpoint3[..., 2:3]
+
+    left_offset = midpoint[..., 0] * torch.tan(gravity.roll)
+    right_offset = (camera.size[..., 0] - midpoint[..., 0]) * torch.tan(gravity.roll)
+    left = midpoint[..., 1] + left_offset
+    right = midpoint[..., 1] - right_offset
+    horizon = torch.stack([left, right], dim=-1)
+    return horizon / camera.size[..., 1:2] if relative else horizon
+
+
 def J_up_field(camera: Camera, gravity: Gravity, h: int, w: int,
                spherical: bool = False, log_focal: bool = False) -> Tensor:
     """Jacobian of the normalized up field, (B, N, 2, 3 + num_k)."""

@@ -31,6 +31,9 @@ _SIGNATURES = {
     # up_x, up_y, lat_sin, up_conf, lat_conf, cam, grav, M, G, H, cost,
     # B, N, w, model, P, loss_id, up_scale, lat_scale, mask_bits, log_focal, stream
     "gc_lm_system": [_P] * 11 + [_I] * 6 + [_F, _F, _I, _I, _P],
+    # up_x, up_y, lat_sin, up_conf, lat_conf, cam, grav, cost,
+    # B, N, w, model, loss_id, up_scale, lat_scale, stream
+    "gc_lm_cost": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
     # threads, cluster, active clusters (out), w
     "gc_lm_config": [_P, _P, _P, _I],
     # dtype, x, bases, coef, bt, gram, partial, B, N, D, R, steps, inv_t, eps, chunk, stream

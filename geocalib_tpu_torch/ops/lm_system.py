@@ -7,7 +7,9 @@ lane, no scratch tensor) for CUDA tensors and calls ``lm_system_plain``, the
 same math in plain PyTorch on (B, N) planes, for CPU tensors. Its backward
 (``LMSystemFunction``) mirrors the JAX ``_bwd``: it differentiates the plain
 version, recomputed on detached copies of the inputs, against the
-cotangents of (G, H, cost).
+cotangents of (G, H, cost). ``with_system=False`` is the TPU kernel's
+cost-only instance: the mean cost, with G and H zeros; on the card it is
+the kernel's ``lm_cost_kernel``, whose cost is the full instance's bit for bit.
 """
 
 import ctypes
@@ -35,9 +37,10 @@ def _options(cfg, spherical: Optional[bool], log_focal: Optional[bool]):
 
 
 def lm_system_plain(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, w: int,
-                    cfg, spherical: Optional[bool] = None, log_focal: Optional[bool] = None
-                    ) -> Tuple[Tensor, Tensor, Tensor]:
-    """G (B, P), H (B, P, P) and the mean cost (B,) on full (B, N) planes."""
+                    cfg, spherical: Optional[bool] = None, log_focal: Optional[bool] = None,
+                    with_system: bool = True) -> Tuple[Tensor, Tensor, Tensor]:
+    """G (B, P), H (B, P, P) and the mean cost (B,) on full (B, N) planes; without
+    the system, G and H are zeros and only the cost is computed."""
     spherical, log_focal = _options(cfg, spherical, log_focal)
     loss_fn = get_loss_fn(cfg.loss_fn)
     mask = cfg.param_mask
@@ -56,8 +59,9 @@ def lm_system_plain(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h:
             c = c * obs["up_conf"]
             w_up = w_up * obs["up_conf"]
         cost = cost + c.sum(-1)
-        J_up = pf.J_up_planes(camera, gravity, u, v, spherical, log_focal, M)
-        channels += [(r_up[0], w_up, J_up[0]), (r_up[1], w_up, J_up[1])]
+        if with_system:
+            J_up = pf.J_up_planes(camera, gravity, u, v, spherical, log_focal, M)
+            channels += [(r_up[0], w_up, J_up[0]), (r_up[1], w_up, J_up[1])]
     if "lat_sin" in obs:
         r_lat = obs["lat_sin"] - pf.sinlat_planes(camera, gravity, u, v)
         c, w_lat, _ = scaled_loss(r_lat**2, loss_fn, cfg.lat_loss_fn_scale)
@@ -65,8 +69,9 @@ def lm_system_plain(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h:
             c = c * obs["lat_conf"]
             w_lat = w_lat * obs["lat_conf"]
         cost = cost + c.sum(-1)
-        J_lat = pf.J_lat_planes(camera, gravity, u, v, spherical, log_focal, M)
-        channels.append((r_lat, w_lat, J_lat))
+        if with_system:
+            J_lat = pf.J_lat_planes(camera, gravity, u, v, spherical, log_focal, M)
+            channels.append((r_lat, w_lat, J_lat))
 
     G = u.new_zeros((B, P))
     H = u.new_zeros((B, P, P))
@@ -79,9 +84,10 @@ def lm_system_plain(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h:
 
 
 def lm_system(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, w: int, cfg,
-              spherical: Optional[bool] = None, log_focal: Optional[bool] = None
-              ) -> Tuple[Tensor, Tensor, Tensor]:
-    """G (B, P), H (B, P, P) and the mean cost (B,) at the current estimate.
+              spherical: Optional[bool] = None, log_focal: Optional[bool] = None,
+              with_system: bool = True) -> Tuple[Tensor, Tensor, Tensor]:
+    """G (B, P), H (B, P, P) and the mean cost (B,) at the current estimate; with
+    ``with_system=False`` the cost alone, G and H zeros (the cost-only instance).
 
     obs: any of ``OBS_KEYS``, each (B, N = h*w) float32. CPU tensors go to
     ``lm_system_plain``; CUDA tensors launch the kernel or raise. Differentiable
@@ -90,7 +96,7 @@ def lm_system(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, 
     dev = camera.f.device
     if dev.type == "cpu":
         spherical, log_focal = _options(cfg, spherical, log_focal)
-        return _apply(obs, camera, gravity, h, w, cfg, spherical, log_focal)
+        return _apply(obs, camera, gravity, h, w, cfg, spherical, log_focal, with_system)
     if dev.type != "cuda":
         raise ValueError(f"lm_system runs on CPU or CUDA tensors, not {dev}")
     spherical, log_focal = _options(cfg, spherical, log_focal)
@@ -110,13 +116,13 @@ def lm_system(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: int, 
             raise ValueError(f"{key} must be contiguous")
     if ("up_x" in obs) != ("up_y" in obs):
         raise ValueError("up_x and up_y come together")
-    return _apply(obs, camera, gravity, h, w, cfg, spherical, log_focal)
+    return _apply(obs, camera, gravity, h, w, cfg, spherical, log_focal, with_system)
 
 
 def _apply(obs, camera: Camera, gravity: Gravity, h: int, w: int, cfg, spherical: bool,
-           log_focal: bool) -> Tuple[Tensor, Tensor, Tensor]:
+           log_focal: bool, with_system: bool) -> Tuple[Tensor, Tensor, Tensor]:
     keys = tuple(obs)
-    spec = (keys, camera.model, h, w, cfg, spherical, log_focal)
+    spec = (keys, camera.model, h, w, cfg, spherical, log_focal, with_system)
     return LMSystemFunction.apply(spec, camera.data, gravity.vec3d, *(obs[k] for k in keys))
 
 
@@ -132,22 +138,25 @@ class LMSystemFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, cam_data: Tensor, vec3d: Tensor, *planes: Tensor):
-        keys, model, h, w, cfg, spherical, log_focal = spec
+        keys, model, h, w, cfg, spherical, log_focal, with_system = spec
         ctx.spec = spec
         ctx.save_for_backward(cam_data, vec3d, *planes)
         obs = dict(zip(keys, planes))
         camera, gravity = Camera.from_data(cam_data, model), Gravity(vec3d)
         if cam_data.device.type == "cpu":
-            return lm_system_plain(obs, camera, gravity, h, w, cfg, spherical, log_focal)
+            return lm_system_plain(obs, camera, gravity, h, w, cfg, spherical, log_focal,
+                                   with_system)
         B = cam_data.shape[0]
         cam = cam_data.to(torch.float32).contiguous()
         grav = vec3d.to(torch.float32).contiguous()
+        if not with_system:
+            return launch_cost(obs, cam, grav, model, w, cfg)
         M = pf.manifold_matrix(gravity, spherical).to(torch.float32).reshape(B, 6).contiguous()
         return launch(obs, cam, grav, M, model, w, cfg, log_focal)
 
     @staticmethod
     def backward(ctx, gG: Tensor, gH: Tensor, gcost: Tensor):
-        keys, model, h, w, cfg, spherical, log_focal = ctx.spec
+        keys, model, h, w, cfg, spherical, log_focal, with_system = ctx.spec
         needs = ctx.needs_input_grad[1:]
         inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
         wanted = [t for t in inputs if t.requires_grad]
@@ -156,7 +165,8 @@ class LMSystemFunction(torch.autograd.Function):
             with torch.enable_grad():
                 cam_data, vec3d, *planes = inputs
                 out = lm_system_plain(dict(zip(keys, planes)), Camera.from_data(cam_data, model),
-                                      Gravity(vec3d), h, w, cfg, spherical, log_focal)
+                                      Gravity(vec3d), h, w, cfg, spherical, log_focal,
+                                      with_system)
                 grads = iter(torch.autograd.grad(out, wanted, (gG, gH, gcost),
                                                  allow_unused=True))
         lm_system.vjp_calls += 1
@@ -185,6 +195,23 @@ def launch(obs: Dict[str, Tensor], cam: Tensor, grav: Tensor, M: Tensor, model: 
     return G, H, cost
 
 
+def launch_cost(obs: Dict[str, Tensor], cam: Tensor, grav: Tensor, model: str, w: int, cfg
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One launch of the cost-only instance on checked inputs: (zeros G, zeros H, cost)."""
+    B, N = next(iter(obs.values())).shape
+    dev = cam.device
+    P = cfg.num_params
+    cost = torch.empty((B,), dtype=torch.float32, device=dev)
+    code = build.lib().gc_lm_cost(
+        *(build.ptr(obs.get(k)) for k in OBS_KEYS), cam.data_ptr(), grav.data_ptr(),
+        cost.data_ptr(), B, N, w, MODEL_IDS[model], LOSS_IDS[cfg.loss_fn],
+        cfg.up_loss_fn_scale, cfg.lat_loss_fn_scale, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "gc_lm_cost")
+    lm_system.cost_launches += 1
+    return (torch.zeros((B, P), dtype=torch.float32, device=dev),
+            torch.zeros((B, P, P), dtype=torch.float32, device=dev), cost)
+
+
 def kernel_config(w: int) -> Dict[str, int]:
     """The built kernel's threads per block, blocks per lane (one cluster), and how many
     clusters (lanes) the card holds at once at w columns."""
@@ -196,4 +223,5 @@ def kernel_config(w: int) -> Dict[str, int]:
 
 lm_system.launches = 0
 lm_system.launches_by_model = dict.fromkeys(MODEL_IDS, 0)
+lm_system.cost_launches = 0  # launches of the cost-only instance
 lm_system.vjp_calls = 0  # backward passes of LMSystemFunction (no kernel launch)

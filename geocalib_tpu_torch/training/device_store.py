@@ -8,7 +8,7 @@ bit for bit), decodes them to float32, augments them on the device
 image traffic. Sampling is i.i.d. with replacement, as in the JAX package.
 
 ``stage_sharded`` (rows split over a mesh's devices, multi-process) is mesh
-work, queued with the distributed port (ROADMAP Queue 1 item 4): on one shard
+work, queued with the distributed port (ROADMAP Queue 1, distributed): on one shard
 it is ``stage``, and on more it raises.
 """
 
@@ -26,7 +26,7 @@ from geocalib_tpu_torch.utils.threefry import Key, fold_in, randint, split
 
 Tensor = torch.Tensor
 _MESH = ("DeviceStore: rows sharded over several devices need the distributed port "
-         "(parallel/mesh.py, ROADMAP Queue 1 item 4), which is not done")
+         "(parallel/mesh.py, ROADMAP Queue 1, distributed), which is not done")
 
 
 @dataclasses.dataclass
@@ -76,7 +76,7 @@ class DeviceStore:
     @classmethod
     def stage_sharded(cls, dataset, num_shards: int = 1, row_indices=None, **kw
                       ) -> "DeviceStore":
-        """``stage`` on one shard; several shards raise (ROADMAP Queue 1 item 4)."""
+        """``stage`` on one shard; several shards raise (ROADMAP Queue 1, distributed)."""
         if num_shards != 1:
             raise NotImplementedError(_MESH)
         return cls.stage(dataset, row_indices=row_indices, **kw)

@@ -11,13 +11,14 @@ unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``).
 Without ``train.init_weights`` the network starts from torch's own
 initialisation seeded with ``seed``, not from the JAX package's Flax
 initialisation; with it (a Flax msgpack, as training/export.py writes) both
-packages start from the same weights. Figures (``train.figures_every``) need
-``visualization/``, which is not ported: a conf that asks for them raises at
-the start.
+packages start from the same weights. Every ``train.figures_every`` steps,
+at a validation, the loop writes the up and latitude field figures of the
+first validation batch (``visualization/``), as the JAX loop does; they need
+matplotlib, and a conf that asks for them where it is absent raises at the
+start (set ``train.figures_every=0``).
 
 Usage (the conf's YAML needs PyYAML; dotlist overrides do not):
-    python -m geocalib_tpu_torch.training.train my_exp \\
-        data.dataset_dir=data/openpano train.figures_every=0
+    python -m geocalib_tpu_torch.training.train my_exp data.dataset_dir=data/openpano
 """
 
 import argparse
@@ -29,13 +30,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from geocalib_tpu_torch.data.dataset import DatasetConf, PrefetchLoader, SimpleDataset
-from geocalib_tpu_torch.extractor import resolve_device
+from geocalib_tpu_torch.data.dataset import (DatasetConf, PrefetchLoader, SimpleDataset,
+                                             synthesize_gt_fields)
+from geocalib_tpu_torch.extractor import DTYPES, resolve_device
 from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
 from geocalib_tpu_torch.training.checkpoint import ExperimentManager
 from geocalib_tpu_torch.training.train_step import (TrainConfig, TrainState, create_train_state,
-                                                    make_eval_step, make_train_step,
-                                                    param_grads)
+                                                    eval_fields, make_eval_step,
+                                                    make_train_step, param_grads)
 from geocalib_tpu_torch.utils.config import apply_dotlist, load_yaml, merge, save_yaml
 from geocalib_tpu_torch.utils.summary_writer import SummaryWriter
 from geocalib_tpu_torch.utils.threefry import Key, prng_key, split
@@ -67,7 +69,7 @@ default_conf: Dict[str, Any] = {
         # benchmark evaluations during training (names from eval/benchmarks); 0 disables
         "benchmark_every": 0,
         "benchmarks": ["openpano_synth"],
-        # field figures with each validation: needs visualization/, not ported; set 0
+        # up/latitude field figures with each validation (0 disables); need matplotlib
         "figures_every": 1000,
         "val_batches": 10,
         # warm-start weights (a Flax msgpack from training/export.py)
@@ -85,10 +87,6 @@ default_conf: Dict[str, Any] = {
         "camera_model": "pinhole",
     },
 }
-
-FIGURES_MISSING = ("train.figures_every > 0 asks for field figures, which need the "
-                   "visualization/ module, not ported to geocalib_tpu_torch yet; set "
-                   "train.figures_every=0")
 
 
 def make_train_config(conf: Dict[str, Any]) -> TrainConfig:
@@ -153,8 +151,6 @@ def _variables(state: TrainState) -> Dict[str, torch.Tensor]:
 
 def _setup(conf: Dict[str, Any], output_dir, restore: bool, device):
     """(device, writer, config, net, state, manager, start step) of a run."""
-    if int(conf["train"].get("figures_every", 0) or 0) > 0:
-        raise NotImplementedError(FIGURES_MISSING)
     dev = resolve_device(device)
     out_dir = Path(output_dir)
     writer = SummaryWriter(out_dir / "logs")
@@ -177,10 +173,18 @@ def training(conf: Dict[str, Any], output_dir, restore: bool = False,
     """Run the training loop; returns the last logged scalars.
 
     staged=True copies the whole dataset to the card once and assembles every
-    batch there (training/device_store.py).
+    batch there (training/device_store.py); it writes no figures, as the JAX
+    package's staged loop. The host loop raises at the start when
+    ``train.figures_every`` asks for figures and matplotlib is absent.
     """
     if staged:
         return _staged_training(conf, output_dir, restore, max_steps, device)
+    if int(conf["train"].get("figures_every", 0) or 0) > 0:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise ImportError("train.figures_every > 0 asks for field figures, which need "
+                              "matplotlib; install it or set train.figures_every=0") from e
     dev, writer, cfg, net, state, manager, start_step = _setup(conf, output_dir, restore, device)
     dconf, t_conf = conf["data"], conf["train"]
     batch_size = int(dconf["batch_size"])
@@ -233,6 +237,9 @@ def training(conf: Dict[str, Any], output_dir, restore: bool = False,
                            max_batches=int(t_conf.get("val_batches", 10)),
                            eval_idx=step // int(t_conf["eval_every"]))
             writer.add_scalars(val, step, prefix="val/")
+            fig_every = int(t_conf.get("figures_every", 0) or 0)
+            if fig_every and step % fig_every == 0:
+                _log_figures(writer, net, cfg, state, val_ds, step, dev)
             key = t_conf["best_key"]
             if val.get(key, float("inf")) < best:
                 best = val[key]
@@ -246,6 +253,23 @@ def training(conf: Dict[str, Any], output_dir, restore: bool = False,
     manager.save(state, step, conf, scalars)
     writer.close()
     return scalars
+
+
+def _log_figures(writer: SummaryWriter, net, cfg: TrainConfig, state: TrainState,
+                 val_ds: SimpleDataset, step: int, dev, n: int = 3) -> None:
+    """Up and latitude field figures, predicted against the ground truth, of the first
+    validation batch's first n images, through the network in evaluation mode."""
+    from geocalib_tpu_torch.visualization.visualize_batch import make_perspective_figures
+    from geocalib_tpu_torch.visualization.viz2d import _plt
+
+    data = synthesize_gt_fields(_to(next(iter(val_ds.epoch(epoch=0))), dev), cfg.camera_model)
+    dtype = DTYPES[cfg.compute_dtype]
+    params = {k: v.to(dtype) if v.dtype == torch.float32 else v for k, v in state.params.items()}
+    with torch.no_grad():
+        pred = eval_fields(net, params, state.batch_stats, data["image"].to(dtype))
+    for tag, fig in make_perspective_figures(pred, data, n_pairs=n).items():
+        writer.add_figure(f"figures/{tag}", fig, step)
+        _plt().close(fig)
 
 
 def _maybe_benchmark(conf, state: TrainState, cfg: TrainConfig, writer: SummaryWriter,

@@ -203,6 +203,18 @@ def _generator(key: Key, device: torch.device) -> torch.Generator:
     return gen
 
 
+def eval_fields(net: GeoCalibNet, params: Tree, batch_stats: Tree, image: Tensor
+                ) -> Dict[str, Tensor]:
+    """The network's fields in evaluation mode (running statistics, no DropPath, the
+    evaluation NMF) on these parameters; the module's mode is restored after."""
+    was_training = net.training
+    net.eval()
+    try:
+        return torch.func.functional_call(net, (params, batch_stats), (image,))
+    finally:
+        net.train(was_training)
+
+
 def loss_and_updates(net: GeoCalibNet, cfg: TrainConfig, params: Tree, batch_stats: Tree,
                      batch: Dict[str, Any], key: Key, train: bool = True):
     """The forward (network and differentiable LM) and the training losses.
@@ -226,12 +238,7 @@ def loss_and_updates(net: GeoCalibNet, cfg: TrainConfig, params: Tree, batch_sta
         fields, new_stats = torch.func.functional_call(
             net, (cast, stats), (image, n_key), {"generator": _generator(d_key, image.device)})
     else:
-        was_training = net.training
-        net.eval()
-        try:
-            fields = torch.func.functional_call(net, (cast, batch_stats), (image,))
-        finally:
-            net.train(was_training)
+        fields = eval_fields(net, cast, batch_stats, image)
         new_stats = batch_stats
     fields = {k: v.float() for k, v in fields.items()}
     res = run_lm(dict(fields), cfg.lm_config())

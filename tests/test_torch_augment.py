@@ -189,5 +189,5 @@ def test_device_store_stages_and_samples_as_jax(dataset_dir):
         out = tstore.sample_batch(store.images, store.gt_params, tk, 5, augment="geocalib")
         d = np.abs(out["image"].numpy() - np.asarray(ref["image"]))
         assert (d <= 1e-6).mean() >= 0.999 and d.max() <= 1 / 24
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1, distributed"):
         tstore.DeviceStore.stage_sharded(ds, num_shards=2)

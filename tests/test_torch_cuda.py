@@ -84,6 +84,26 @@ def test_lm_kernel_matches_plain(card, model, shape, keys):
         _close(out, lm_system_plain(obs, cam, grav, h, w, cfg, sph, logf))
 
 
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("shape", [(3, 48, 40), (2, 61, 37)])
+@pytest.mark.parametrize("keys", [OBS_KEYS, ("up_x", "up_y"), ("lat_sin", "lat_conf")])
+def test_lm_cost_kernel_matches_full_and_plain(card, model, shape, keys):
+    """The cost-only instance (with_system=False): its cost is the full instance's bit for
+    bit (the same sums in the same order), within the LM tolerance of the plain version,
+    and G and H are zeros."""
+    B, h, w = shape
+    obs, cam, grav = _lm_inputs(model, B, h, w, card)
+    obs = {k: obs[k] for k in keys}
+    for loss in ("huber", "squared", "barron"):
+        cfg = LMConfig(camera_model=model, loss_fn=loss)
+        before = lm_system.cost_launches
+        G, H, cost = lm_system(obs, cam, grav, h, w, cfg, with_system=False)
+        assert lm_system.cost_launches == before + 1
+        assert not G.any() and not H.any()
+        assert torch.equal(cost, lm_system(obs, cam, grav, h, w, cfg)[2])
+        _close((cost,), (lm_system_plain(obs, cam, grav, h, w, cfg, with_system=False)[2],))
+
+
 def test_lm_kernel_divisional_guards(card):
     """simple_divisional at its guards: lane 0 has a pixel where 1 + k1 r² is exactly 0
     (u = 1, v = 0, k1 = -1), lanes 1 and 2 pixels where 1 - 4 k1 r² is clipped at 1e-6."""
@@ -405,3 +425,32 @@ def test_training_loop_saves_and_restores_on_the_card(card, tmp_path, monkeypatc
     back = params_from_jax(read_flax_msgpack(tmp_path / "w.msgpack"), "tiny")
     final = torch.load(tmp_path / "checkpoint_3" / "state.pt", weights_only=True)
     assert got == 3 and all(torch.equal(back[k], v) for k, v in final["params"].items())
+
+
+@pytest.mark.parametrize("model", ["pinhole", "simple_radial"])
+def test_render_and_undistort_on_the_card_match_the_cpu(card, model):
+    """The dataset generator's render on the card: where each crop pixel samples the
+    panorama within 1e-3 pano pixels of the CPU on the sphere (the bound of
+    tests/test_torch_generate.py), the sampler on equal coordinates within 1e-6, the
+    rows equal; and undistort_image within 1e-4 of the CPU's."""
+    from geocalib_tpu_torch.data import generate, pano as pano_lib
+
+    conf = generate.dataset_conf(height=48, width=64, crops_per_pano=4, pano_height=96,
+                                 pano_width=192)
+    task = {"split": "train", "conf": conf, "camera_model": model, "seed": 5}
+    pano = np.random.default_rng(0).uniform(size=(96, 192, 3)).astype(np.float32)
+    rows, crops = generate.render_pano(task, "synth0000", pano, card)
+    rows_cpu, _ = generate.render_pano(task, "synth0000", pano, "cpu")
+    assert rows == rows_cpu and crops.device.type == "cuda" and crops.shape == (4, 48, 64, 3)
+    _, yaw = generate.sample_rows("synth0000", task)
+    views = lambda dev: generate.row_views(rows, yaw, model, dev)
+    on_card = tuple(t.cpu() for t in pano_lib.pano_coordinates(pano.shape[:2], *views(card)))
+    on_cpu = pano_lib.pano_coordinates(pano.shape[:2], *views("cpu"))
+    assert float(pano_lib.sample_distance(on_card, on_cpu, pano.shape[:2]).max()) <= 1e-3
+    sampled = pano_lib._bilinear_sample(torch.from_numpy(pano), *on_card).reshape(crops.shape)
+    torch.testing.assert_close(crops.cpu(), sampled, rtol=0, atol=1e-6)
+
+    cam = views(card)[0]
+    und = cam.undistort_image(crops)
+    ref = generate.row_views(rows, yaw, model, "cpu")[0].undistort_image(crops.cpu())
+    torch.testing.assert_close(und.cpu(), ref, rtol=0, atol=1e-4)

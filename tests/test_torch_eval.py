@@ -357,8 +357,8 @@ def test_prediction_cache_round_trip(tmp_path):
 
 def test_prepare_benchmark(tmp_path):
     assert tbenchmarks.prepare_benchmark("openpano_synth", ROOT / "data") == SYNTH
-    with pytest.raises(FileNotFoundError, match="geocalib_tpu.data.generate"):
-        tbenchmarks.prepare_benchmark("openpano_synth", tmp_path)
+    with pytest.raises(FileNotFoundError, match="geocalib_tpu_torch.data.generate"):
+        tbenchmarks.prepare_benchmark("openpano", tmp_path)
     assert set(tbenchmarks.BENCHMARKS) == {
         "lamar2k", "megadepth2k", "megadepth2k_radial", "tartanair", "stanford2d3d",
         "openpano", "openpano_radial", "openpano_synth"}

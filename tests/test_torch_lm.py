@@ -70,6 +70,27 @@ def _system_close(t, j):
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-5 * np.abs(b).max())
 
 
+@pytest.mark.parametrize("model", MODELS)
+def test_plain_cost_only_matches_pallas(model):
+    """with_system=False: the cost against the Pallas kernel's cost-only instance in
+    interpret mode, G and H zeros in both, and the cost the full system's bit for bit."""
+    data, cam, grav, h, w = _setup(model)
+    jcfg = JLMConfig(camera_model=model)
+    obs, _, _ = flatten_observations({k: jnp.asarray(v) for k, v in data.items()}, jcfg)
+    obs = {k: v for k, v in obs._asdict().items() if v is not None}
+    pallas = lm_system_pallas(obs, cam, grav, h, w, jcfg, False, True)
+
+    cfg = LMConfig(camera_model=model)
+    tobs = {k: torch.from_numpy(np.asarray(v)) for k, v in obs.items()}
+    tcam, tgrav = _to_torch(cam, grav)
+    out = lm_system_plain(tobs, tcam, tgrav, h, w, cfg, with_system=False)
+    _system_close(out, pallas)
+    assert not out[0].any() and not out[1].any()
+    assert torch.equal(out[2], lm_system_plain(tobs, tcam, tgrav, h, w, cfg)[2])
+    for a, b in zip(lm_system(tobs, tcam, tgrav, h, w, cfg, with_system=False), out):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("name", ["squared", "huber", "barron"])
 def test_losses(name):
     x = np.random.default_rng(0).uniform(0, 5, 64).astype(np.float32)

@@ -11,6 +11,7 @@ a JAX-initialised state.
 
 import importlib
 import json
+import sys
 from pathlib import Path
 
 import jax
@@ -255,14 +256,17 @@ def test_detect_anomaly_raises():
 
 # ------------------------------------------------------------------ the CLI
 
-def test_cli_refuses_figures_and_parses_the_dotlist(tmp_path):
-    """The default conf asks for figures (train.figures_every 1000), which need the
-    unported visualization/: training raises at the start and names the fix. With
-    figures off, the dotlist reaches the loop, which then fails on the missing data."""
+def test_cli_refuses_figures_and_parses_the_dotlist(tmp_path, monkeypatch):
+    """The default conf asks for figures (train.figures_every 1000), which need
+    matplotlib: where it is absent, training raises at the start, names it and the
+    fix. With figures off, the dotlist reaches the loop, which then fails on the
+    missing data."""
     from geocalib_tpu_torch.training import train
 
-    with pytest.raises(NotImplementedError, match="train.figures_every=0"):
-        train.main(["exp", "--output_root", str(tmp_path), "--device", "cpu"])
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "matplotlib", None)  # import matplotlib raises ImportError
+        with pytest.raises(ImportError, match="matplotlib.*train.figures_every=0"):
+            train.main(["exp", "--output_root", str(tmp_path), "--device", "cpu"])
     assert not (tmp_path / "exp").exists()
     with pytest.raises(FileNotFoundError, match="nowhere"):
         train.main(["exp", "--output_root", str(tmp_path), "--device", "cpu",
