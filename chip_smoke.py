@@ -108,6 +108,29 @@ set to 0 around it); frames finite and of the crop's shape, undistort_image
 and the overlays by the card against the same camera and gravity on the CPU,
 and milliseconds per frame.
 
+Last, the distributed phase (parallel/mesh.py), a path of its own: 2 IFT steps
+of the train phase's setup with a float32 network, without a process group
+and with an NCCL group of one rank in this process, bit for bit equal; then
+DIST_RANKS ranks started with multiprocessing's spawn on this one card over
+gloo (NCCL refuses two ranks on one GPU), each 12 rows of the batch of 24: 3
+IFT steps and 1 unrolled step through the kernels (launches counted around each
+step: 11 LM, 0 NMF) and through the plain versions, the ranks' states equal
+bit for bit after every step, each step's mean gradient by the kernels against
+the plain versions' on the same state by the train phase's float32 rule (the
+bf16 comparison reported, not judged), the same comparison without the mesh
+and with the train phase's setup (reported beside the steps' worst leaf), the
+staged store split by rank (one staged step and one eval window: 11 LM, and 1
+NMF of the float32 instance in the window; the window by the kernels against
+the plain versions by the loop phase's rule with the float32 loss bound, the
+NMF against nmf_plain on the window's own inputs within NMF_F32_TOL, each
+beside a control with one NMF step fewer that must fail), and the
+shared-intrinsics LM on each rank's 8 lanes of request a within DIST_VFOV_TOL
+of this process on all 16 (31 LM launches). Each rank's step time, the
+gradient's all-reduce and its bytes, the all-reduces a step, the peak memory
+and the phase's time are printed with the card; the gloo times go through the
+host and say nothing of NCCL between cards. A rank that exits non-zero or
+outlives DIST_TIMEOUT_S fails the run.
+
 Run from the repository root, on a machine with one card:
 
     python3 chip_smoke.py
@@ -121,9 +144,12 @@ import contextlib
 import copy
 import csv
 import dataclasses
+import datetime
 import faulthandler
+import hashlib
 import json
 import math
+import multiprocessing as mp
 import os
 import re
 import shutil
@@ -135,6 +161,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import geocalib_tpu_torch
 from geocalib_tpu_torch.data import generate as gen_lib, pano as pano_lib
@@ -142,11 +169,13 @@ from geocalib_tpu_torch.data.dataset import synthesize_gt_fields
 from geocalib_tpu_torch.demo import demo as demo_lib, overlays as overlays_lib
 from geocalib_tpu_torch.eval import pipeline as eval_lib
 from geocalib_tpu_torch.geometry import planar_fields as pf
+from geocalib_tpu_torch.parallel import mesh as pmesh
+from geocalib_tpu_torch.training import device_store as store_lib
 from geocalib_tpu_torch.training import export as loop_export
 from geocalib_tpu_torch.training import train as loop_lib
 from geocalib_tpu_torch.training import train_step as train_lib
 from geocalib_tpu_torch.utils import config as loop_config
-from geocalib_tpu_torch.models import hamburger
+from geocalib_tpu_torch.models import hamburger, modules as modules_lib
 from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
 from geocalib_tpu_torch.ops import build, lm_system as lm_ops, nmf as nmf_ops
 from geocalib_tpu_torch.optim import lm as lm_solver
@@ -183,6 +212,7 @@ LM_TIMING_K = {"pinhole": (0.0, 0.0), "simple_radial": (-0.1, 0.0), "radial": (-
 
 LM_TOL = 1e-4    # f32 relative deviation of G, H and cost: sums taken in another order
 NMF_TOL = 2e-2   # relative Frobenius error of the bf16 reconstruction, 7 steps
+NMF_F32_TOL = 1e-4  # the same for the float32 instance
 ANGLE_TOL = 0.05  # degrees, whole path with kernels against the plain versions
 GATE_REQUESTS = ("a", "c", "d", "e")  # served by both routes for the whole-path gate
 WATCHDOG_S = 600  # a hung kernel becomes a traceback after this many seconds
@@ -234,6 +264,13 @@ GENERATE_POOL_PANOS, GENERATE_POOL_WORKERS = 4, 2  # generate_dataset's train sp
 GENERATE_ANGLE_TOL = 5.0
 DEMO_MODELS, DEMO_FRAMES, DEMO_PIXEL_SHARE = ("pinhole", "simple_radial",
                                               "simple_divisional"), 4, 1e-3
+# The distributed phase: the ranks spawned on the one card (gloo), how long a rank may
+# run, the steps of the NCCL one-rank check, the staged rows split over the ranks, the
+# shared LM's vFoV bound over the ranks against one process (radians, as the JAX
+# package's 2-process test holds itself), and the timed repeats of the gradient's
+# all-reduce.
+DIST_RANKS, DIST_TIMEOUT_S, DIST_NCCL_STEPS, DIST_STAGED_ROWS = 2, 600, 2, 24
+DIST_VFOV_TOL, DIST_ALLREDUCE_REPS = 1e-5, 5
 
 
 def card_name() -> str:
@@ -352,6 +389,7 @@ def zero_counts() -> None:
     lm_ops.lm_system.launches = 0
     lm_ops.lm_system.launches_by_model = dict.fromkeys(lm_ops.MODEL_IDS, 0)
     nmf_ops.nmf.launches = 0
+    nmf_ops.nmf.launches_by_dtype = dict.fromkeys(nmf_ops.nmf.launches_by_dtype, 0)
 
 
 def serve(calib, name: str, *args, **kw):
@@ -641,6 +679,16 @@ def lm_phase(calib, calib_h, images: np.ndarray, images_d: np.ndarray,
             "cost_only": cost_only}
 
 
+def nmf_cost(x: torch.Tensor, bases: torch.Tensor, steps: int) -> Tuple[int, int]:
+    """(bytes, floating-point operations) of one NMF of x (B, N, D) with R bases: x,
+    the bases, coef and bt each moved once, and the products of the updates."""
+    B, N, D = x.shape
+    R = bases.shape[2]
+    macs = ((steps + 2) * N * D * R + steps * N * R * D + (steps + 1) * N * R * R
+            + steps * N * R * R + (steps + 1) * R * R * D + steps * R * R * D)
+    return x.element_size() * B * (N * D + D * R + N * R + R * D), 2 * B * macs
+
+
 def nmf_phase(calib, images: np.ndarray) -> dict:
     """The NMF kernels against nmf_plain on request (a)'s stacked head tokens."""
     crop = calib.preprocessor(torch.from_numpy(images).to(calib.device))["image"]
@@ -666,11 +714,8 @@ def nmf_phase(calib, images: np.ndarray) -> dict:
     plain_ms = cuda_ms(lambda: nmf_ops.nmf_plain(tokens, bases, steps), reps=3, per_graph=2)
     B, N, D = tokens.shape
     R = bases.shape[2]
-    macs = ((steps + 2) * N * D * R + steps * N * R * D + (steps + 1) * N * R * R
-            + steps * N * R * R + (steps + 1) * R * R * D + steps * R * R * D)
-    flops = 2 * B * macs
     esize = tokens.element_size()
-    nbytes = esize * B * (N * D + D * R + N * R + R * D)
+    nbytes, flops = nmf_cost(tokens, bases, steps)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     log(f"nmf kernel B={B} N={N} D={D} R={R}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms")
@@ -1018,6 +1063,8 @@ def grad_compare(label: str, out: tuple, ref: tuple) -> dict:
             f"{share:.3e}")
     result = {"loss_rel": max(loss_dev.values()), "norm_rel": abs(gnorm - rnorm) / rnorm,
               "leaf_rel": leaves[worst], "worst_leaf": worst, "leaves": len(leaves),
+              "worst_leaf_l2": float(torch.linalg.norm(rgrads[worst].double())),
+              "worst_leaf_dev_l2": float(torch.linalg.norm((grads[worst] - rgrads[worst]).double())),
               "leaves_over_tol": sum(v > TRAIN_LEAF_TOL for v in leaves.values())}
     result["ok"] = (result["loss_rel"] <= TRAIN_LOSS_TOL and result["norm_rel"] <= TRAIN_NORM_TOL
                     and result["leaf_rel"] <= TRAIN_LEAF_TOL)
@@ -1304,6 +1351,25 @@ class LoopProbe:
             loop_lib.ExperimentManager, loop_lib.SimpleDataset = manager_cls, dataset
 
 
+def validation_compare(label: str, got: dict, ref: dict, loss_tol: float) -> dict:
+    """Validation scalars against another run's: recalls within LOOP_RECALL_TOL, angle
+    metrics within LOOP_ANGLE_TOL degrees, loss terms within loss_tol relative; each
+    key's deviation, bound and verdict, the largest of each kind logged."""
+    dev = {}
+    for k, v in ref.items():
+        d = abs(got[k] - v)
+        bound, kind = ((LOOP_RECALL_TOL, "abs") if "recall" in k else
+                       (LOOP_ANGLE_TOL, "abs deg") if k.startswith("metric/") else
+                       (loss_tol, "rel"))
+        d = d / max(abs(v), 1e-12) if kind == "rel" else d
+        dev[k] = {"dev": d, "bound": bound, "kind": kind, "ok": d <= bound}
+    worst = {kind: max((x for x in dev.items() if x[1]["kind"] == kind), key=lambda x: x[1]["dev"])
+             for kind in ("abs", "abs deg", "rel")}
+    for kind, (k, x) in worst.items():
+        log(f"{label}: largest {kind} deviation {x['dev']:.3e} in {k} (bound {x['bound']})")
+    return dev
+
+
 def states_equal(a, b) -> bool:
     """Two TrainStates bit for bit: step, parameters, statistics, Adam count and moments."""
     trees = lambda s: (s.params, s.batch_stats, s.opt_state.mu, s.opt_state.nu)
@@ -1436,19 +1502,7 @@ def loop_phase(weights: dict, card: str) -> dict:
     kern = {k: float(v) for k, v in eval_fn(final, batch, (0, 7)).items()}
     with plain_versions():
         plain = {k: float(v) for k, v in eval_fn(final, batch, (0, 7)).items()}
-    dev = {}
-    for k, v in plain.items():
-        d = abs(kern[k] - v)
-        bound, kind = ((LOOP_RECALL_TOL, "abs") if "recall" in k else
-                       (LOOP_ANGLE_TOL, "abs deg") if k.startswith("metric/") else
-                       (LOOP_LOSS_TOL, "rel"))
-        d = d / max(abs(v), 1e-12) if kind == "rel" else d
-        dev[k] = {"dev": d, "bound": bound, "kind": kind, "ok": d <= bound}
-    worst = {kind: max((x for x in dev.items() if x[1]["kind"] == kind), key=lambda x: x[1]["dev"])
-             for kind in ("abs", "abs deg", "rel")}
-    for kind, (k, x) in worst.items():
-        log(f"loop validation, kernels vs plain: largest {kind} deviation {x['dev']:.3e} in {k} "
-            f"(bound {x['bound']})")
+    dev = validation_compare("loop validation, kernels vs plain", kern, plain, LOOP_LOSS_TOL)
     check(all(x["ok"] for x in dev.values()),
           f"loop validation, kernels vs plain: {[k for k, x in dev.items() if not x['ok']]}")
 
@@ -1720,6 +1774,545 @@ def demo_phase(calib, crops: torch.Tensor, card: str) -> dict:
             "overlay_pixel_share": pixel_share}
 
 
+# ---------------------------------------------------------------- distributed phase
+
+def state_digest(state) -> str:
+    """sha256 over every tensor of a TrainState (parameters, statistics, Adam count and
+    moments) and its step, in name order: equal digests are equal states, bit for bit."""
+    h = hashlib.sha256(str(int(state.step)).encode())
+    opt = state.opt_state
+    for tree in (state.params, state.batch_stats, opt.mu, opt.nu):
+        for k in sorted(tree):
+            h.update(k.encode())
+            h.update(tree[k].detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    h.update(opt.count.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN deterministic, no TF32: the same state and key give the same bits."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@contextlib.contextmanager
+def counted_collectives(counts: dict):
+    """Count, while active, every all-reduce of parallel/mesh.py (calls and bytes) and
+    the BatchNorm statistics' means over the ranks (forward calls; each has one
+    all-reduce in the backward too)."""
+    reduce, bn_mean = pmesh._all_reduce, modules_lib.mean_over_ranks
+
+    def counted_reduce(x, *a, **kw):
+        counts["all_reduce"] += 1
+        counts["bytes"] += x.numel() * x.element_size()
+        return reduce(x, *a, **kw)
+
+    def counted_bn(x, mesh):
+        counts["batchnorm_forward"] += 1
+        return bn_mean(x, mesh)
+
+    pmesh._all_reduce, modules_lib.mean_over_ranks = counted_reduce, counted_bn
+    try:
+        yield counts
+    finally:
+        pmesh._all_reduce, modules_lib.mean_over_ranks = reduce, bn_mean
+
+
+def mean_grads(out: tuple, mesh) -> tuple:
+    """compute_grads' output with its gradients replaced by their mean over the ranks,
+    taken as the step takes it: one all-reduce of the leaves concatenated."""
+    loss, grads, stats, losses, metrics = out
+    flat = pmesh.mean_over_ranks(torch.cat([g.reshape(-1) for g in grads.values()]), mesh)
+    parts = flat.split([g.numel() for g in grads.values()])
+    return loss, {k: p.view(g.shape) for (k, g), p in zip(grads.items(), parts)}, stats, losses, \
+        metrics
+
+
+def nccl_one_rank(weights: dict, work: Path) -> dict:
+    """DIST_NCCL_STEPS IFT steps of the train phase's setup (MSCAN-B, the r05 weights,
+    batch 24 at 320x320, a float32 network) without a process group and with an NCCL
+    group of one rank: the states and scalars must be equal bit for bit."""
+    batch = train_batch(np.random.default_rng(3))
+    cfg = train_lib.TrainConfig(compute_dtype="float32")
+
+    def run(mesh):
+        net, state = train_lib.create_train_state(cfg, weights, device="cuda", mesh=mesh)
+        out = []
+        for i in range(DIST_NCCL_STEPS):
+            state, scalars = train_lib.train_step(net, cfg, state, batch, (0, i))
+            out.append((state, scalars))
+        return out
+
+    with deterministic():
+        ref = run(None)
+        dist.init_process_group("nccl", store=dist.FileStore(str(work / "nccl_store"), 1),
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        try:
+            mesh = pmesh.make_mesh("cuda:0")
+            backend = dist.get_backend()
+            zero_counts()
+            got = run(mesh)
+            torch.cuda.synchronize()
+            launches = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches}
+        finally:
+            dist.destroy_process_group()
+    equal = [states_equal(a, b) and set(sa) == set(sb) and all(torch.equal(sa[k], sb[k])
+                                                               for k in sa)
+             for (a, sa), (b, sb) in zip(ref, got)]
+    log(f"distributed, {backend} with one rank in this process: {DIST_NCCL_STEPS} IFT steps "
+        f"(MSCAN-B, batch {TRAIN_B} at {TRAIN_SIZE}x{TRAIN_SIZE}, float32 network) bit for bit "
+        f"equal to the same steps without a group, step by step: {equal}; launches {launches}")
+    check(backend == "nccl" and all(equal) and len(equal) == DIST_NCCL_STEPS,
+          f"distributed: NCCL with one rank differs from no group: {equal}")
+    check(launches == {"lm_system": DIST_NCCL_STEPS * (cfg.lm_steps + 1), "nmf": 0},
+          f"distributed, NCCL one rank: launches {launches}")
+    del ref, got
+    torch.cuda.empty_cache()
+    return {"equal": equal, "launches": launches}
+
+
+def leaf_controls(weights: dict) -> dict:
+    """The float32 comparison of kernels against plain versions at the first state, in
+    one process on the whole batch of 24, with the distributed steps' setup (drop path,
+    key (0, 0)) and with the train phase's (no drop path, key (0, 5))."""
+    batch = train_batch(np.random.default_rng(3))
+    out = {}
+    for label, c, key in leaf_setups(train_lib.TrainConfig(compute_dtype="float32")):
+        net, state = train_lib.create_train_state(c, weights, device="cuda")
+        run = lambda: train_lib.compute_grads(net, c, state, batch, key)  # noqa: E731
+        with plain_versions(lm=True, nmf=False):
+            ref = run()
+        out[f"one process, {TRAIN_B} rows, {label}"] = grad_compare(
+            f"one process, {TRAIN_B} rows, {label}, kernels vs plain", run(), ref)
+        del ref, net, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_setups(cfg) -> list:
+    """(label, config, key) of the two setups the worst leaf is compared in (the drop
+    path rate is the network's, set where create_train_state builds it)."""
+    return [("the step's setup", cfg, (0, 0)),
+            ("the train phase's setup", replace_cfg(cfg, drop_path_rate=0.0), (0, 5))]
+
+
+def distributed_rank(rank: int, work: str) -> None:
+    """A rank of the distributed phase, in a process of its own (started by spawn): it
+    joins a gloo group of DIST_RANKS over a FileStore, drives the card cuda:0 that it
+    shares with the other rank, and writes its results to rank<r>.json; its stdout goes
+    to rank<r>.log."""
+    work = Path(work)
+    faulthandler.dump_traceback_later(DIST_TIMEOUT_S, exit=True)
+    sys.stdout = open(work / f"rank{rank}.log", "w", buffering=1)
+    sys.stderr = sys.stdout
+    dist.init_process_group("gloo", store=dist.FileStore(str(work / "gloo_store"), DIST_RANKS),
+                            rank=rank, world_size=DIST_RANKS,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        with deterministic():
+            out = distributed_rank_run(pmesh.make_mesh("cuda:0"), work)
+    finally:
+        dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def distributed_rank_run(mesh, work: Path) -> dict:
+    """This rank's 12 rows of the train phase's batch: 3 IFT steps and 1 unrolled step
+    through the kernels (launches counted around each step, CUDA events, a digest of the
+    state after each), each step's mean gradient by the kernels against the plain
+    versions on the same state (the train phase's float32 rule), the same 4 steps
+    through the plain versions (digests), the bf16 comparison (reported), the staged
+    store, step and eval window (the window and its NMF against the plain versions),
+    the first state's comparison in other setups, the shared-intrinsics LM on this
+    rank's lanes of request a, the flat-gradient all-reduce timed, and the peak
+    memory."""
+    rank, per = mesh.rank, TRAIN_B // mesh.size
+    torch.cuda.reset_peak_memory_stats()
+    weights = params_from_jax(read_flax_msgpack(WEIGHTS), "b")
+    batch = train_batch(np.random.default_rng(3))
+    local = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+    cfg = train_lib.TrainConfig(compute_dtype="float32")
+    cfgs = (cfg, cfg, cfg, replace_cfg(cfg, lm_grad_mode="unroll"))
+    net, state0 = train_lib.create_train_state(cfg, weights, mesh=mesh)
+    out = {"rank": rank, "rows": per, "steps": [], "plain_digests": []}
+
+    state = state0
+    for i, c in enumerate(cfgs):
+        run = lambda s=state, c=c, i=i: mean_grads(  # noqa: E731
+            train_lib.compute_grads(net, c, s, local, (0, i)), mesh)
+        with plain_versions(lm=True, nmf=False):
+            ref = run()
+            if i == 0:
+                again = run()
+                out["plain_repeatable"] = torch.equal(ref[0], again[0]) and all(
+                    torch.equal(ref[1][k], again[1][k]) for k in ref[1])
+                del again
+        compare = grad_compare(f"rank {rank} step {i} ({c.lm_grad_mode}), kernels vs plain",
+                               run(), ref)
+        del ref
+        zero_counts()
+        counts = {"all_reduce": 0, "bytes": 0, "batchnorm_forward": 0}
+        with counted_collectives(counts):
+            (state, scalars), ms = timed(lambda: train_lib.train_step(net, c, state, local,
+                                                                      (0, i)))
+        out["steps"].append({
+            "mode": c.lm_grad_mode, "ms": ms, "digest": state_digest(state),
+            "launches": {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches},
+            "collectives": counts, "compare": compare,
+            "scalars": {k: float(v) for k, v in scalars.items()}})
+    kernel_state = state
+
+    state = state0
+    with plain_versions(lm=True, nmf=False):
+        for i, c in enumerate(cfgs):
+            state, _ = train_lib.train_step(net, c, state, local, (0, i))
+            out["plain_digests"].append(state_digest(state))
+    out["kernels_vs_plain_after_4_steps"] = max(
+        float((kernel_state.params[k] - v).abs().max()) for k, v in state.params.items())
+    del state, kernel_state
+
+    c16 = replace_cfg(cfg, compute_dtype="bfloat16")
+    run16 = lambda: mean_grads(  # noqa: E731
+        train_lib.compute_grads(net, c16, state0, local, (0, 0)), mesh)
+    with plain_versions(lm=True, nmf=False):
+        ref = run16()
+    out["bf16_reported"] = grad_compare(f"rank {rank} bf16 network, ift, kernels vs plain "
+                                        f"(reported, not judged)", run16(), ref)
+    del ref
+
+    images, truth = scenes(np.random.default_rng(8), DIST_STAGED_ROWS, TRAIN_SIZE, TRAIN_SIZE)
+    ds = rendered_dataset_class({"train.csv": (images, truth)})(
+        loop_lib.DatasetConf(csv_name="train.csv", batch_size=TRAIN_B))
+    store = store_lib.DeviceStore.stage_sharded(ds, mesh, progress=None)
+    rows = DIST_STAGED_ROWS // mesh.size
+    want = np.clip(images[rank * rows:(rank + 1) * rows] * 255.0, 0, 255).astype(np.uint8)
+    out["store"] = {"rows": len(store), "own_slice": len(store) == rows and bool(
+        np.array_equal(store.images.cpu().numpy(), want))}
+    step = store_lib.make_staged_train_step(net, cfg, TRAIN_B, augment=True)
+    zero_counts()
+    (staged, scalars), ms = timed(lambda: step(state0, store.images, store.gt_params, (0, 9)))
+    out["staged_step"] = {"ms": ms, "digest": state_digest(staged),
+                          "launches": {"lm_system": lm_ops.lm_system.launches,
+                                       "nmf": nmf_ops.nmf.launches},
+                          "loss": float(scalars["loss/total"])}
+    window = store_lib.make_staged_eval_step(net, cfg, TRAIN_B)
+    run_window = lambda: {k: float(v) for k, v in window(  # noqa: E731
+        state0, store.images, store.gt_params, 0, (0, 9)).items()}
+    calls = []
+    zero_counts()
+    with patched_nmf(calls):
+        val = run_window()
+    out["staged_eval"] = {"launches": {"lm_system": lm_ops.lm_system.launches,
+                                       "nmf": nmf_ops.nmf.launches,
+                                       "nmf_by_dtype": dict(nmf_ops.nmf.launches_by_dtype)},
+                          "finite": all(math.isfinite(v) for v in val.values()),
+                          "loss": val["loss/total"]}
+    # the window's NMF (the float32 instance) against nmf_plain on the inputs it was
+    # given, and the window by the kernels against the plain versions, each beside a
+    # control with one NMF step fewer that its rule must reject
+    with plain_versions(lm=True, nmf=True):
+        val_plain = run_window()
+    with patched_nmf(wrong=True):
+        val_wrong = run_window()
+    out["staged_eval"]["vs_plain"] = validation_compare(
+        f"rank {rank} staged eval window, kernels vs plain", val, val_plain, TRAIN_LOSS_TOL)
+    out["staged_eval"]["wrong_nmf_vs_plain"] = validation_compare(
+        f"rank {rank} staged eval window, one NMF step fewer (control) vs plain", val_wrong,
+        val_plain, TRAIN_LOSS_TOL)
+    out["staged_eval"]["nmf"] = nmf_check(f"rank {rank} staged eval window", *calls[0])
+    if rank == 0:
+        torch.save([t.cpu() if torch.is_tensor(t) else t for t in calls[0]], work / "nmf_inputs.pt")
+    del store, staged, calls
+
+    # the same comparison as each step's, without the mesh on this rank's rows: with the
+    # distributed phase's setup (drop path, the step's key) and with the train phase's
+    # (no drop path, its key), the latter under the mesh too; which of lanes, setup and
+    # collectives sets the worst leaf
+    setups = [(f"one process, rank {rank}'s {per} rows, {label}", None, c, key)
+              for label, c, key in leaf_setups(cfg)]
+    setups.append((f"the mesh, {mesh.size} x {per} rows, the train phase's setup", mesh,
+                   *leaf_setups(cfg)[1][1:]))
+    out["leaf_controls"] = {}
+    for label, m, c, key in setups:
+        n_, _ = train_lib.create_train_state(c, weights, device=mesh.device, mesh=m)
+        run = lambda: mean_grads(train_lib.compute_grads(  # noqa: E731
+            n_, c, state0, local, key), m)
+        with plain_versions(lm=True, nmf=False):
+            ref = run()
+        out["leaf_controls"][label] = grad_compare(f"rank {rank}, {label}, kernels vs plain",
+                                                   run(), ref)
+        del ref, n_
+
+    fields = torch.load(work / "request_a.pt", weights_only=True)
+    lanes = len(fields["up_field"]) // mesh.size
+    data = {k: v[rank * lanes:(rank + 1) * lanes].to(mesh.device) for k, v in fields.items()}
+    zero_counts()
+    res = lm_solver.run_lm(data, LMConfig(shared_intrinsics=True, early_stop=False, mesh=mesh))
+    out["shared_lm"] = {"vfov": res.camera.vfov.tolist(), "roll": res.gravity.roll.tolist(),
+                        "pitch": res.gravity.pitch.tolist(),
+                        "launches": lm_ops.lm_system.launches_by_model.get("pinhole", 0)}
+
+    n = sum(v.numel() for v in state0.params.values())
+    flat = torch.ones(n, device=mesh.device)
+    times = []
+    for _ in range(DIST_ALLREDUCE_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pmesh.mean_over_ranks(flat, mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["grad_all_reduce"] = {"ms_median": float(np.median(times[1:])), "ms": times[1:],
+                              "bytes": n * 4}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+@contextlib.contextmanager
+def patched_nmf(calls: list = None, wrong: bool = False):
+    """While active, the network's NMF reconstructions append their arguments (copies
+    of x and the bases, then steps, inv_t, eps) to `calls`; wrong: they run one
+    multiplicative step fewer, a control that the NMF checks must reject."""
+    fn = hamburger.nmf_reconstruct
+
+    def recon(x, b, steps, *a):
+        if calls is not None:
+            calls.append((x.detach().clone(), b.detach().clone(), steps, *a))
+        return fn(x, b, steps - 1 if wrong else steps, *a)
+
+    hamburger.nmf_reconstruct = recon
+    try:
+        yield
+    finally:
+        hamburger.nmf_reconstruct = fn
+
+
+def nmf_check(label: str, x, bases, steps: int, *args) -> dict:
+    """The NMF kernel's reconstruction against nmf_plain's on these inputs (relative
+    Frobenius error, bound NMF_TOL for bf16, NMF_F32_TOL for float32), beside the
+    kernel with one step fewer, which must exceed the bound."""
+    ref = torch.matmul(*nmf_ops.nmf_plain(x, bases, steps, *args)).float()
+    rel = lambda y: float(torch.linalg.norm((y.float() - ref).flatten())  # noqa: E731
+                          / torch.linalg.norm(ref.flatten()))
+    got = nmf_ops.nmf_reconstruct(x, bases, steps, *args)
+    wrong = nmf_ops.nmf_reconstruct(x, bases, steps - 1, *args)
+    bound = NMF_TOL if x.dtype == torch.bfloat16 else NMF_F32_TOL
+    out = {"shape": list(x.shape) + [bases.shape[2]], "dtype": str(x.dtype), "steps": steps,
+           "rel": rel(got), "max_abs_err": float((got.float() - ref).abs().max()),
+           "wrong_rel": rel(wrong), "bound": bound,
+           "finite": bool(torch.isfinite(got).all())}
+    out["ok"] = out["rel"] <= bound and out["finite"] and out["wrong_rel"] > bound
+    log(f"{label}: nmf kernel vs plain {tuple(x.shape)} R={bases.shape[2]} {x.dtype}: relative "
+        f"Frobenius {out['rel']:.3e} (bound {bound}), max abs {out['max_abs_err']:.3e}; one step "
+        f"fewer (control) {out['wrong_rel']:.3e}: {'passes' if out['ok'] else 'FAILS'}")
+    return out
+
+
+def run_ranks(work: Path) -> list:
+    """Start DIST_RANKS ranks with multiprocessing's spawn (CUDA is already initialised
+    here, so no fork), and wait for them within DIST_TIMEOUT_S: a rank that exits
+    non-zero or outlives the timeout fails the phase, and every other rank is stopped."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=distributed_rank, args=(r, str(work))) for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * DIST_RANKS:
+        for r in range(DIST_RANKS):
+            log_path = work / f"rank{r}.log"
+            tail = log_path.read_text()[-4000:] if log_path.exists() else "(no log)"
+            log(f"distributed rank {r} exited {codes[r]}; its log ends:\n{tail}")
+    check(codes == [0] * DIST_RANKS, f"distributed: the ranks exited {codes} (killed at "
+                                     f"{DIST_TIMEOUT_S} s if still running)")
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(DIST_RANKS)]
+
+
+def distributed_phase(weights: dict, calib, images: np.ndarray, card: str,
+                      train_leaf: float) -> dict:
+    """Data-parallel training (parallel/mesh.py) on the card: NCCL with one rank in this
+    process bit for bit equal to no group; then DIST_RANKS ranks over gloo on this one
+    card (NCCL refuses two ranks on one GPU), each 12 rows of the train phase's batch of
+    24 (float32 network): the ranks' states equal after every step, each step's mean
+    gradient by the kernels within the train phase's float32 rule of the plain versions'
+    (the bf16 comparison reported), the shared-intrinsics LM over the ranks' lanes of
+    request a within DIST_VFOV_TOL of this process on all 16 lanes, the staged store's
+    rows split by rank, and the staged eval window's float32 NMF against nmf_plain on
+    its inputs (timed here on rank 0's). The gloo times go through the host and say
+    nothing of NCCL between cards."""
+    t_start = time.perf_counter()
+    faulthandler.dump_traceback_later(2 * DIST_TIMEOUT_S, exit=True)
+    work = ROOT / ".smoke" / f"distributed_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    nccl = nccl_one_rank(weights, work)
+    with deterministic():
+        whole = leaf_controls(weights)
+
+    data = request_system(calib, images, "pinhole", {})[0]
+    fields = {k: data[k].float().contiguous() for k in ("up_field", "latitude_field",
+                                                        "up_confidence", "latitude_confidence")}
+    ref = lm_solver.run_lm(fields, LMConfig(shared_intrinsics=True, early_stop=False))
+    torch.save({k: v.cpu() for k, v in fields.items()}, work / "request_a.pt")
+    del data, fields
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(work)
+    ranks_s = time.perf_counter() - t0
+    per_step = train_lib.TrainConfig().lm_steps + 1
+    for name in ("steps", "plain"):
+        digests = [[s["digest"] for s in r["steps"]] if name == "steps" else r["plain_digests"]
+                   for r in ranks]
+        equal = [len(set(d)) == 1 for d in zip(*digests)]
+        log(f"distributed, gloo, {DIST_RANKS} ranks on one card, {name}: the ranks' states "
+            f"(parameters, Adam state, running statistics) bit for bit equal after each step: "
+            f"{equal}")
+        check(all(equal) and len(equal) == 4, f"distributed: the ranks' states differ ({name})")
+        check(len(set(digests[0])) == 4, f"distributed: the state did not move ({name})")
+    check(len({r["staged_step"]["digest"] for r in ranks}) == 1,
+          "distributed: the ranks' states differ after the staged step")
+    worst = {}
+    for r in ranks:
+        check(r["plain_repeatable"], f"rank {r['rank']}: two plain runs differ")
+        for i, s in enumerate(r["steps"]):
+            check(s["compare"]["ok"], f"distributed rank {r['rank']} step {i}: kernels vs plain "
+                                      f"{s['compare']}")
+            check(s["launches"] == {"lm_system": per_step, "nmf": 0},
+                  f"distributed rank {r['rank']} step {i}: launches {s['launches']}")
+            check(all(math.isfinite(v) for v in s["scalars"].values())
+                  and s["scalars"]["skipped_nonfinite"] == 0.0, f"step {i}: {s['scalars']}")
+            if s["compare"]["leaf_rel"] >= worst.get("leaf_rel", -1.0):
+                worst = dict(s["compare"], rank=r["rank"], step=i)
+        check(r["store"]["own_slice"], f"rank {r['rank']}: the staged store {r['store']}")
+        ev = r["staged_eval"]
+        check(r["staged_step"]["launches"] == {"lm_system": per_step, "nmf": 0}
+              and ev["launches"] == {"lm_system": per_step, "nmf": 1,
+                                     "nmf_by_dtype": {"float32": 1, "bfloat16": 0}}
+              and ev["finite"],
+              f"rank {r['rank']}: staged step {r['staged_step']} eval {ev['launches']}")
+        check(ev["nmf"]["ok"], f"rank {r['rank']}: the eval window's NMF {ev['nmf']}")
+        check(all(x["ok"] for x in ev["vs_plain"].values()),
+              f"rank {r['rank']}: the eval window, kernels vs plain: {ev['vs_plain']}")
+        check(not all(x["ok"] for x in ev["wrong_nmf_vs_plain"].values()),
+              f"rank {r['rank']}: the eval window with one NMF step fewer passed its rule")
+        for kind in ("vs_plain", "wrong_nmf_vs_plain"):
+            worst_rel = max((k for k, x in ev[kind].items() if x["kind"] == "rel"),
+                            key=lambda k: ev[kind][k]["dev"])
+            log(f"distributed rank {r['rank']}, the staged eval window {kind.replace('_', ' ')} "
+                f"(float32 loss bound {TRAIN_LOSS_TOL}): largest relative loss deviation "
+                f"{ev[kind][worst_rel]['dev']:.3e} in {worst_rel}; over the rule: "
+                f"{[k for k, x in ev[kind].items() if not x['ok']]}")
+        check(r["shared_lm"]["launches"] == 31, f"rank {r['rank']}: shared LM {r['shared_lm']}")
+    log(f"distributed, kernels vs plain, each step's mean gradient over the ranks (float32 "
+        f"network, the train phase's rule): worst leaf {worst['leaf_rel']:.3e} in "
+        f"{worst['worst_leaf']} (rank {worst['rank']}, step {worst['step']}), loss terms "
+        f"{max(s['compare']['loss_rel'] for r in ranks for s in r['steps']):.3e}, global norm "
+        f"{max(s['compare']['norm_rel'] for r in ranks for s in r['steps']):.3e}: passes")
+
+    # the worst leaf's relative L2 is its deviation over its norm: each setup's, with both
+    controls = whole | {k: v for r in ranks for k, v in r["leaf_controls"].items()
+                        if "the mesh" not in k or r["rank"] == 0}
+    controls[f"the mesh, {DIST_RANKS} x {TRAIN_B // DIST_RANKS} rows, the step's setup (step 0 "
+             f"above)"] = ranks[0]["steps"][0]["compare"]
+    for label, c in controls.items():
+        log(f"distributed, kernels vs plain at the first state, {label}: worst leaf "
+            f"{c['leaf_rel']:.3e} in {c['worst_leaf']} (its L2 {c['worst_leaf_l2']:.4e}, the "
+            f"deviation's {c['worst_leaf_dev_l2']:.4e}), loss terms {c['loss_rel']:.3e}, norm "
+            f"{c['norm_rel']:.3e}")
+        check(c["ok"], f"distributed, {label}: kernels vs plain {c}")
+    log(f"distributed, the setups: the step's drop path "
+        f"{train_lib.TrainConfig().drop_path_rate} and key (0, 0), the train phase's no drop "
+        f"path and key (0, 5); the train phase's own comparison (one process, its state): "
+        f"{train_leaf:.3e}")
+
+    x, bases, steps, *args = torch.load(work / "nmf_inputs.pt", weights_only=True)
+    x, bases = x.cuda(), bases.cuda()
+    nmf32 = nmf_check("distributed, rank 0's eval window inputs in this process", x, bases, steps,
+                      *args)
+    check(nmf32["ok"], f"distributed: the float32 NMF at the eval window's inputs {nmf32}")
+    nbytes, flops = nmf_cost(x, bases, steps)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    nmf32 |= {"ms": cuda_ms(lambda: nmf_ops.nmf(x, bases, steps, *args), reps=3, per_graph=2),
+              "plain_ms": cuda_ms(lambda: nmf_ops.nmf_plain(x, bases, steps, *args), reps=3,
+                                  per_graph=2),
+              "bound_ms": max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    log(f"nmf kernel, float32 instance at the eval window's shape {nmf32['shape']}: "
+        f"{nmf32['ms']:.4f} ms, plain {nmf32['plain_ms']:.4f} ms, bound {nmf32['bound_ms']:.4f} "
+        f"ms ({nmf32['bound_by']}); card {card}")
+    del x, bases
+
+    vfov = np.concatenate([r["shared_lm"]["vfov"] for r in ranks])
+    rp = np.concatenate([np.stack([r["shared_lm"]["roll"], r["shared_lm"]["pitch"]], -1)
+                         for r in ranks])
+    ref_rp = torch.stack([ref.gravity.roll, ref.gravity.pitch], -1).cpu().numpy()
+    vfov_dev = float(np.abs(vfov - ref.camera.vfov.cpu().numpy()).max())
+    rp_dev = float(np.abs(rp - ref_rp).max())
+    log(f"distributed, shared-intrinsics LM (LM kernel, early stop off) over {DIST_RANKS} ranks "
+        f"of 8 lanes of request a against this process on its 16 lanes: vFoV within "
+        f"{vfov_dev:.3e} rad (bound {DIST_VFOV_TOL}), roll and pitch within {rp_dev:.3e} rad "
+        f"(reported); one vFoV over the ranks: {len(set(vfov.tolist())) == 1}")
+    check(vfov_dev <= DIST_VFOV_TOL and len(set(vfov.tolist())) == 1,
+          f"distributed: the shared LM over the ranks deviates by {vfov_dev:.3e} rad")
+
+    for r in ranks:
+        ift = sorted(s["ms"] for s in r["steps"] if s["mode"] == "ift")
+        col = r["steps"][0]["collectives"]
+        red = r["grad_all_reduce"]
+        log(f"distributed rank {r['rank']} (gloo through the host, 2 ranks sharing one card; "
+            f"says nothing of NCCL between cards): IFT step median {ift[len(ift) // 2]:.1f} ms "
+            f"of {[round(x, 1) for x in ift]} (CUDA events, first step with warm-up), unrolled "
+            f"{r['steps'][3]['ms']:.1f} ms, staged step {r['staged_step']['ms']:.1f} ms; the "
+            f"flat-gradient all-reduce {red['ms_median']:.1f} ms (median of "
+            f"{DIST_ALLREDUCE_REPS}) for {red['bytes'] / 1e6:.1f} MB; per IFT step "
+            f"{col['all_reduce']} all-reduces ({col['bytes'] / 1e6:.1f} MB), of them "
+            f"{col['batchnorm_forward']} BatchNorm forward and as many backward; peak "
+            f"{r['peak_gib']:.2f} GiB; bf16 kernels vs plain (reported) worst leaf "
+            f"{r['bf16_reported']['leaf_rel']:.3e} in {r['bf16_reported']['worst_leaf']}; "
+            f"card {card}")
+        check(col["all_reduce"] == 2 * col["batchnorm_forward"] + 3,
+              f"rank {r['rank']}: {col} (BatchNorm forward and backward, the gradient, the "
+              f"scalars and the NaN vote)")
+    launches = {"lm_system": nccl["launches"]["lm_system"] + sum(
+        sum(s["launches"]["lm_system"] for s in r["steps"]) + r["staged_step"]["launches"][
+            "lm_system"] + r["staged_eval"]["launches"]["lm_system"] + r["shared_lm"]["launches"]
+        for r in ranks),
+        "nmf": sum(r["staged_eval"]["launches"]["nmf_by_dtype"]["bfloat16"] for r in ranks),
+        "nmf_float32": sum(r["staged_eval"]["launches"]["nmf_by_dtype"]["float32"]
+                           for r in ranks)}
+    seconds = time.perf_counter() - t_start
+    log(f"distributed: launches {json.dumps(launches)}; the phase {seconds:.1f} s (the ranks "
+        f"{ranks_s:.1f} s, their start included); card {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "seconds": seconds, "ranks_s": ranks_s, "nccl": nccl,
+            "vfov_dev": vfov_dev, "rp_dev": rp_dev, "worst_leaf": worst,
+            "worst_leaf_by_setup": {k: {f: c[f] for f in ("leaf_rel", "worst_leaf", "worst_leaf_l2",
+                                                          "worst_leaf_dev_l2")}
+                                    for k, c in controls.items()}, "nmf_float32": nmf32,
+            "ranks": [{k: r[k] for k in ("rank", "grad_all_reduce", "peak_gib", "store",
+                                         "bf16_reported", "kernels_vs_plain_after_4_steps")}
+                      | {"step_ms": [s["ms"] for s in r["steps"]],
+                         "collectives": r["steps"][0]["collectives"],
+                         "staged_step_ms": r["staged_step"]["ms"]} for r in ranks]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1811,16 +2404,20 @@ def main() -> int:
     loop = loop_phase(weights, card)
     generate = generate_phase(calib, card)
     demo = demo_phase(calib, generate["crops"]["openpano_radial_v2"], card)
+    distributed = distributed_phase(weights, calib, images, card,
+                                    train["compare"]["float32 ift"]["kernels"]["leaf_rel"])
 
     by_model = {m: sum(c["lm_system_by_model"].get(m, 0) for c in counts.values())
                 + evaluation["lm_by_model"][m] + generate["launches"]["lm_by_model"].get(m, 0)
                 + demo["launches"]["lm_by_model"].get(m, 0) for m in lm_ops.MODEL_IDS}
-    by_model["pinhole"] += train["launches"]["lm_system"] + loop["launches"]["lm_system"]
+    by_model["pinhole"] += (train["launches"]["lm_system"] + loop["launches"]["lm_system"]
+                            + distributed["launches"]["lm_system"])
     for model, entry in lm["per_model"].items():
         entry["launches"] = by_model[model]
     paths = lambda name: {"serving a-e": launches[name], "eval": evaluation["launches"][name],
                           "train": train["launches"][name], "loop": loop["launches"][name],
-                          "generate": generate["launches"][name], "demo": demo["launches"][name]}
+                          "generate": generate["launches"][name], "demo": demo["launches"][name],
+                          "distributed": distributed["launches"][name]}
     cost_only = lm.pop("cost_only")
     kernels = [
         {"name": "lm_system", "route": "cuda", "source": "geocalib_tpu_torch/csrc/lm_system.cu",
@@ -1836,6 +2433,13 @@ def main() -> int:
         {"name": "nmf", "route": "cuda", "source": "geocalib_tpu_torch/csrc/nmf.cu",
          "replaces": "geocalib_tpu/ops/nmf_kernel.py:86", "launches": sum(paths("nmf").values()),
          "launches_by_path": paths("nmf"), **nmf, "eval_shape": evaluation["at_shape"]["nmf"]},
+        {"name": "nmf_float32", "route": "cuda", "source": "geocalib_tpu_torch/csrc/nmf.cu",
+         "replaces": "geocalib_tpu/ops/nmf_kernel.py:86", "instance": "float32",
+         "launches": distributed["launches"]["nmf_float32"],
+         "launches_by_path": {"distributed": distributed["launches"]["nmf_float32"]},
+         **{k: distributed["nmf_float32"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                        "bound_ms", "bound_by", "library_ms",
+                                                        "shape")}},
     ]
     train_line = {k: train[k] for k in ("ift_step_ms", "unroll_step_ms", "step_ms", "peak_gib",
                                         "lm_kernel_ms_per_step", "device_kernel_ms_per_step",
@@ -1847,6 +2451,7 @@ def main() -> int:
     log(json.dumps({"loop": loop, "card": card}, default=str))
     log(json.dumps({"generate": {k: v for k, v in generate.items() if k != "crops"},
                     "demo": demo, "card": card}, default=str))
+    log(json.dumps({"distributed": distributed, "card": card}, default=str))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -13,6 +13,9 @@ latitude_field (B, H, W, 1), up_confidence / latitude_confidence (B, H, W).
 ``forward`` is the evaluation path; ``forward_train`` mirrors
 ``fused_forward_train`` (models/fused_heads.py:399-452): the backbone in
 training mode, the heads' NMF from bases drawn from the step's NMF key.
+With a data-parallel mesh (parallel/mesh.py, the JAX net's ``bn_axis_name``)
+the backbone's BatchNorms sync their statistics over the ranks in training;
+the training step reads the mesh from ``net.mesh``.
 """
 
 from typing import Dict, Optional, Tuple
@@ -24,6 +27,7 @@ from geocalib_tpu_torch.models.hamburger import (LightHamHead, eval_bases, nmf_2
                                                  train_bases)
 from geocalib_tpu_torch.models.modules import ConvModule
 from geocalib_tpu_torch.models.mscan import MSCAN, MSCAN_VARIANTS
+from geocalib_tpu_torch.parallel.mesh import Mesh
 from geocalib_tpu_torch.utils.threefry import Key
 
 Tensor = torch.Tensor
@@ -47,13 +51,15 @@ class LowLevelEncoder(nn.Module):
 class GeoCalibNet(nn.Module):
     """Perspective-field network; ``variant`` is "b" (released) or "tiny" (tests)."""
 
-    def __init__(self, variant: str = "b", drop_path_rate: float = 0.0):
+    def __init__(self, variant: str = "b", drop_path_rate: float = 0.0,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         dims, ratios, depths = MSCAN_VARIANTS[variant]
         out_ch = min(64, dims[0])
         ham_ch = min(512, sum(dims))
         self.variant = variant
-        self.backbone = MSCAN(dims, ratios, depths, drop_path_rate=drop_path_rate)
+        self.mesh = mesh
+        self.backbone = MSCAN(dims, ratios, depths, drop_path_rate=drop_path_rate, mesh=mesh)
         self.low_level = LowLevelEncoder(out_ch)
         self.up_head = LightHamHead(sum(dims), ham_ch, out_ch)
         self.up_proj = nn.Conv2d(out_ch, 2, 1)

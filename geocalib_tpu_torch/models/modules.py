@@ -8,7 +8,9 @@ Port of geocalib_tpu/models/modules.py. Semantics copied exactly:
 - convolutions use symmetric explicit padding.
 
 Training mode is the module's ``training`` flag. DropPath and the Mlp's
-dropout draw their masks from an explicit ``torch.Generator``.
+dropout draw their masks from an explicit ``torch.Generator``. The blocks
+with a BatchNorm take the data-parallel mesh (parallel/mesh.py), the
+counterpart of the JAX modules' ``bn_axis_name``.
 """
 
 import functools
@@ -18,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from geocalib_tpu_torch.parallel.mesh import Mesh, mean_over_ranks
 
 Tensor = torch.Tensor
 
@@ -118,10 +122,17 @@ class BatchNorm(nn.BatchNorm2d):
     goes into the running update ``r = 0.9 r + 0.1 batch`` (in place, under
     no_grad; torch's own update uses the unbiased variance). The output is
     (x - mean) · (rsqrt(var + eps) · scale) + bias in float32, cast to x's dtype.
+
+    With a mesh, training stacks the float32 mean and E[x²] and takes their mean
+    over the ranks in one collective, as Flax's ``_compute_stats`` does with its
+    ``axis_name``: every rank then normalises with, and makes the running update
+    from, the statistics of the whole batch (synced BatchNorm; the backward sums
+    the ranks' cotangents, as JAX's pmean transposes).
     """
 
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, mesh: Optional[Mesh] = None):
         super().__init__(ch, eps=1e-5)
+        self.mesh = mesh
 
     def forward(self, x: Tensor) -> Tensor:
         if not self.training and self.running_mean.dtype == x.dtype:
@@ -130,8 +141,10 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            mean = x32.mean((0, 2, 3))
-            var = torch.clamp((x32 * x32).mean((0, 2, 3)) - mean * mean, min=0.0)
+            mean, sq = x32.mean((0, 2, 3)), (x32 * x32).mean((0, 2, 3))
+            if self.mesh is not None:
+                mean, sq = mean_over_ranks(torch.stack([mean, sq]), self.mesh).unbind(0)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = FLAX_BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -222,11 +235,12 @@ class SpatialAttention(nn.Module):
 class MSCANBlock(nn.Module):
     """BN → attention and BN → MLP residual branches with layer scale and DropPath."""
 
-    def __init__(self, dim: int, mlp_ratio: float, drop: float = 0.0, drop_path: float = 0.0):
+    def __init__(self, dim: int, mlp_ratio: float, drop: float = 0.0, drop_path: float = 0.0,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
-        self.norm1 = BatchNorm(dim)
+        self.norm1 = BatchNorm(dim, mesh)
         self.attn = SpatialAttention(dim)
-        self.norm2 = BatchNorm(dim)
+        self.norm2 = BatchNorm(dim, mesh)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
         self.layer_scale_1 = nn.Parameter(torch.full((dim,), 1e-2))
         self.layer_scale_2 = nn.Parameter(torch.full((dim,), 1e-2))
@@ -242,12 +256,12 @@ class MSCANBlock(nn.Module):
 class StemConv(nn.Module):
     """Two stride-2 3×3 convs with BN, GELU between: 1/4 resolution."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, mesh: Optional[Mesh] = None):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout // 2, 3, stride=2, padding=1)
-        self.bn1 = BatchNorm(cout // 2)
+        self.bn1 = BatchNorm(cout // 2, mesh)
         self.conv2 = nn.Conv2d(cout // 2, cout, 3, stride=2, padding=1)
-        self.bn2 = BatchNorm(cout)
+        self.bn2 = BatchNorm(cout, mesh)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.bn2(self.conv2(gelu(self.bn1(self.conv1(x)))))
@@ -256,10 +270,10 @@ class StemConv(nn.Module):
 class OverlapPatchEmbed(nn.Module):
     """Stride-2 3×3 conv with BN."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, mesh: Optional[Mesh] = None):
         super().__init__()
         self.proj = nn.Conv2d(cin, cout, 3, stride=2, padding=1)
-        self.norm = BatchNorm(cout)
+        self.norm = BatchNorm(cout, mesh)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.norm(self.proj(x))

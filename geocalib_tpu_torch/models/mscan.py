@@ -3,7 +3,8 @@
 Variants: "b" is the released model (dims 64/128/320/512, depths 3/3/12/3);
 "tiny" is the test-size variant of the JAX package. In training, block i of
 the n blocks drops its residual branches at the rate drop_path_rate·i/(n-1)
-(mscan.py:54-56).
+(mscan.py:54-56). Its BatchNorms take the data-parallel mesh (the JAX
+MSCAN's ``bn_axis_name``).
 """
 
 from typing import Optional, Sequence, Tuple
@@ -17,6 +18,7 @@ from geocalib_tpu_torch.models.modules import (
     OverlapPatchEmbed,
     StemConv,
 )
+from geocalib_tpu_torch.parallel.mesh import Mesh
 
 Tensor = torch.Tensor
 
@@ -34,7 +36,8 @@ class MSCAN(nn.Module):
     """
 
     def __init__(self, dims: Sequence[int], mlp_ratios: Sequence[int], depths: Sequence[int],
-                 drop_rate: float = 0.0, drop_path_rate: float = 0.0):
+                 drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         total = sum(depths)
         dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
@@ -43,8 +46,10 @@ class MSCAN(nn.Module):
         self.norms = nn.ModuleList()
         cur = 0
         for i, dim in enumerate(dims):
-            self.embeds.append(StemConv(3, dim) if i == 0 else OverlapPatchEmbed(dims[i - 1], dim))
-            self.stages.append(nn.Sequential(*[MSCANBlock(dim, mlp_ratios[i], drop_rate, dpr[cur + j])
+            self.embeds.append(StemConv(3, dim, mesh) if i == 0
+                               else OverlapPatchEmbed(dims[i - 1], dim, mesh))
+            self.stages.append(nn.Sequential(*[MSCANBlock(dim, mlp_ratios[i], drop_rate,
+                                                          dpr[cur + j], mesh)
                                                for j in range(depths[i])]))
             self.norms.append(ChannelLayerNorm(dim, eps=1e-5))
             cur += depths[i]

@@ -100,10 +100,12 @@ def nmf(x: Tensor, bases: Tensor, steps: int = 7, inv_t: float = 1.0,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "gc_nmf")
     nmf.launches += 1
+    nmf.launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
     return coef, bt
 
 
 nmf.launches = 0
+nmf.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def nmf_reconstruct(x: Tensor, bases: Tensor, steps: int = 7, inv_t: float = 1.0,

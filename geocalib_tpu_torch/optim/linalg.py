@@ -1,12 +1,12 @@
 """Tiny batched linear algebra for the LM solver.
 
-Port of geocalib_tpu/optim/linalg.py, without its ``cross_sum`` (the sum
-across devices comes with the distributed port): P is a small Python int,
-so the Cholesky solve is unrolled into batched tensor arithmetic, with no
-host round trip and no LAPACK call.
+Port of geocalib_tpu/optim/linalg.py: P is a small Python int, so the
+Cholesky solve is unrolled into batched tensor arithmetic, with no host
+round trip and no LAPACK call. ``solve_arrow``'s ``cross_sum`` takes the
+Schur corrections' sum over the ranks when the batch is split over them.
 """
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -70,7 +70,8 @@ def damp_hessian(H: Tensor, lamb: Tensor, eps: float = 1e-6) -> Tensor:
 
 
 def solve_arrow(D: Tensor, U: Tensor, S: Tensor, g_g: Tensor, g_i: Tensor,
-                eps: float = 1e-12) -> Tuple[Tensor, Tensor]:
+                eps: float = 1e-12, cross_sum: Optional[Callable[[Tensor], Tensor]] = None
+                ) -> Tuple[Tensor, Tensor]:
     """Solve the shared-intrinsics arrow system by a Schur complement.
 
         [ blockdiag(D_b)  U_b ] [ x_g,b ]   [ g_g,b ]
@@ -81,6 +82,11 @@ def solve_arrow(D: Tensor, U: Tensor, S: Tensor, g_g: Tensor, g_i: Tensor,
     Ŝ = S - Σ_b U_bᵀ D_b⁻¹ U_b (p × p) the system never becomes dense.
     D_b⁻¹ is the closed-form 2×2 inverse, with |det| < eps replaced by
     sign(det)·eps + eps. Returns x_g (B, 2) and x_i (p,).
+
+    When the batch is split over ranks, ``cross_sum`` (a sum over them, e.g.
+    ``parallel.mesh.sum_over_ranks``) reduces the Schur corrections Σ_b over the
+    whole batch, while D, U and g_g stay the rank's; S and g_i must already be
+    summed over the whole batch by the caller.
     """
     a, d = D[..., 0, 0], D[..., 1, 1]
     b, c = D[..., 0, 1], D[..., 1, 0]
@@ -90,8 +96,12 @@ def solve_arrow(D: Tensor, U: Tensor, S: Tensor, g_g: Tensor, g_i: Tensor,
 
     Dinv_U = torch.einsum("bij,bjk->bik", inv, U)  # (B, 2, p)
     Dinv_g = torch.einsum("bij,bj->bi", inv, g_g)  # (B, 2)
-    S_hat = S - torch.einsum("bji,bjk->ik", U, Dinv_U)
-    rhs = g_i - torch.einsum("bji,bj->i", U, Dinv_g)
+    corr_S = torch.einsum("bji,bjk->ik", U, Dinv_U)  # (p, p)
+    corr_g = torch.einsum("bji,bj->i", U, Dinv_g)  # (p,)
+    if cross_sum is not None:
+        corr_S, corr_g = cross_sum(corr_S), cross_sum(corr_g)
+    S_hat = S - corr_S
+    rhs = g_i - corr_g
 
     x_i = cholesky_solve_small(S_hat, rhs)
     x_g = Dinv_g - torch.einsum("bik,k->bi", Dinv_U, x_i)

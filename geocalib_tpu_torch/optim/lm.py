@@ -16,11 +16,18 @@ intrinsics are ported, and both ways gradients flow through the solver
 through the VJP of ``ops.lm_system``; "ift" runs the loop on detached
 observations and attaches implicit-function-theorem gradients at the fixed
 point (``IFTTheta``, the mirror of the JAX ``_ift_theta``).
+
+With shared intrinsics and a data-parallel mesh (``LMConfig.mesh``, the JAX
+``axis_name``), the batch's lanes are split over the ranks and share one
+camera: the intrinsic blocks of the normal equations, the Schur corrections
+and the batch-mean cost are summed over the ranks, so that every rank solves
+the same coupled system, in the loop and in the IFT adjoint solve. The LM
+kernel still computes each rank's G, H and cost.
 """
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +36,7 @@ from geocalib_tpu_torch.geometry.gravity import Gravity
 from geocalib_tpu_torch.geometry.jacobians import J_focal2fov
 from geocalib_tpu_torch.ops.lm_system import lm_system, lm_system_plain
 from geocalib_tpu_torch.optim import linalg
+from geocalib_tpu_torch.parallel.mesh import Mesh, mean_over_ranks, sum_over_ranks
 from geocalib_tpu_torch.utils.conversions import focal2fov
 
 Tensor = torch.Tensor
@@ -59,6 +67,9 @@ class LMConfig:
     estimate_dist: bool = True
     with_uncertainty: bool = True
     grad_mode: str = "unroll"  # "unroll" | "ift"
+    # the mesh the batch is split over; with shared_intrinsics the intrinsic blocks
+    # and the batch-mean cost are summed over its ranks (the JAX config's axis_name)
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         if self.camera_model not in NUM_DIST_PARAMS:
@@ -207,17 +218,21 @@ def _solve_damped(G: Tensor, H: Tensor, lamb: Tensor, cfg: LMConfig) -> Tensor:
 
     With shared intrinsics λ is one scalar lane. The gravity blocks are damped
     per image; the intrinsics block S is rebuilt from the undamped blocks summed
-    over the batch and damped on that summed diagonal.
+    over the batch and damped on that summed diagonal. With a mesh, the batch is
+    the whole batch over the ranks: S, g_i and the Schur corrections are summed
+    over them.
     """
     if not cfg.shared_intrinsics:
         return linalg.cholesky_solve_small(linalg.damp_hessian(H, lamb), G)
     Hd = linalg.damp_hessian(H, lamb.expand(H.shape[:1]))
     D, U = Hd[:, :2, :2], Hd[:, :2, 2:]
-    S_raw = H[:, 2:, 2:].sum(0)
-    g_i = G[:, 2:].sum(0)
+    mesh = cfg.mesh
+    cross = None if mesh is None else (lambda t: sum_over_ranks(t, mesh))
+    S_raw = sum_over_ranks(H[:, 2:, 2:].sum(0), mesh)
+    g_i = sum_over_ranks(G[:, 2:].sum(0), mesh)
     diag = torch.diagonal(S_raw, dim1=-2, dim2=-1)
     S = S_raw + torch.diag(torch.clamp(diag * lamb, min=1e-6))
-    x_g, x_i = linalg.solve_arrow(D, U, S, G[:, :2], g_i)
+    x_g, x_i = linalg.solve_arrow(D, U, S, G[:, :2], g_i, cross_sum=cross)
     return torch.cat([x_g, x_i.expand((G.shape[0],) + x_i.shape)], dim=-1)
 
 
@@ -287,7 +302,7 @@ def _optimize_loop(obs: Dict[str, Tensor], camera: Camera, gravity: Gravity, h: 
 
     for it in range(cfg.num_steps):
         G, H, cost_lane = lm_system(obs, camera, gravity, h, w, cfg)
-        cost = cost_lane.mean(0, keepdim=True) if shared else cost_lane
+        cost = mean_over_ranks(cost_lane.mean(0, keepdim=True), cfg.mesh) if shared else cost_lane
         if it == 0:
             initial_cost = cost_lane
             conv_now = torch.zeros_like(converged)

@@ -1,5 +1,6 @@
-"""Training: losses, metrics, the one-device training step, and the loop
-(``training.train``) with its checkpoints, export, debug tools and staged store."""
+"""Training: losses, metrics, the training step (data-parallel over a mesh's ranks),
+and the loop (``training.train``) with its checkpoints, export, debug tools and
+staged store."""
 
 from geocalib_tpu_torch.training.losses import geocalib_losses, geocalib_metrics
 from geocalib_tpu_torch.training.train_step import (AdamState, TrainConfig, TrainState,

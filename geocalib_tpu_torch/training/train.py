@@ -1,12 +1,22 @@
-"""Training CLI: the training loop on one card.
+"""Training CLI: the training loop, data-parallel over the cards of a process group.
 
-Port of geocalib_tpu/training/train.py for one device (no mesh, no process
-group: ``jax.process_count()`` is 1): the host loop feeds batches from the
+Port of geocalib_tpu/training/train.py: the host loop feeds batches from the
 threaded PrefetchLoader (or the staged device store), runs the training step,
 logs, validates over a rotating window of the val split, saves and restores
 checkpoints, and runs benchmark evaluations. The keys follow the JAX loop:
 ``PRNGKey(seed + 1)``, split once per step. Everything runs on ``cuda``
 unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``).
+
+Launched by torchrun, one process per card, the loop trains data-parallel as
+the JAX loop does over a mesh (parallel/mesh.py): the conf's ``batch_size`` is
+the global batch, which must divide by the number of ranks W, and rank r loads
+the rows ``epoch(shard=r, num_shards=W)`` (the staged mode stages the r-th
+1/W of the rows); the step means the gradients over the ranks and syncs the
+BatchNorm statistics. The state is broadcast from rank 0 at the start (after a
+restore, which every rank reads); only rank 0 writes the config, the logs, the
+figures, the checkpoints and the benchmark results, and every rank evaluates
+the validation windows as JAX's processes do. Without a process group the
+loop runs on one device as before.
 
 Without ``train.init_weights`` the network starts from torch's own
 initialisation seeded with ``seed``, not from the JAX package's Flax
@@ -19,6 +29,8 @@ start (set ``train.figures_every=0``).
 
 Usage (the conf's YAML needs PyYAML; dotlist overrides do not):
     python -m geocalib_tpu_torch.training.train my_exp data.dataset_dir=data/openpano
+    torchrun --nproc_per_node=N -m geocalib_tpu_torch.training.train my_exp \
+        data.dataset_dir=data/openpano data.batch_size=24
 """
 
 import argparse
@@ -29,11 +41,15 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from geocalib_tpu_torch.data.dataset import (DatasetConf, PrefetchLoader, SimpleDataset,
                                              synthesize_gt_fields)
 from geocalib_tpu_torch.extractor import DTYPES, resolve_device
 from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
+from geocalib_tpu_torch.parallel.mesh import (Mesh, axis_index, axis_size, barrier, make_mesh,
+                                              maybe_initialize_distributed, replicated,
+                                              shard_batch)
 from geocalib_tpu_torch.training.checkpoint import ExperimentManager
 from geocalib_tpu_torch.training.train_step import (TrainConfig, TrainState, create_train_state,
                                                     eval_fields, make_eval_step,
@@ -106,36 +122,36 @@ def make_train_config(conf: Dict[str, Any]) -> TrainConfig:
     )
 
 
-def _to(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    return {k: v.to(device, non_blocking=True) if torch.is_tensor(v) else v
-            for k, v in batch.items()}
-
-
-def _loop_batches(dataset: SimpleDataset, overfit: bool, loader: Optional[PrefetchLoader] = None):
-    """Batches of epoch after epoch through the PrefetchLoader; in overfit mode the
-    first batch forever (the single-batch sanity check of the losses)."""
+def _loop_batches(dataset: SimpleDataset, overfit: bool, loader: Optional[PrefetchLoader] = None,
+                  mesh: Optional[Mesh] = None):
+    """This rank's batches (``epoch(shard=rank, num_shards=W)``, as the JAX loop's
+    processes load theirs) of epoch after epoch through the PrefetchLoader; in
+    overfit mode the first batch forever (the single-batch sanity check of the
+    losses)."""
     loader = loader or PrefetchLoader(dataset)
+    shard = {"shard": axis_index(mesh), "num_shards": axis_size(mesh)}
     if overfit:
-        first = next(iter(dataset.epoch(epoch=0)))
+        first = next(iter(dataset.epoch(epoch=0, **shard)))
         while True:
             yield first
     epoch = 0
     while True:
-        yield from loader.epoch(epoch=epoch)
+        yield from loader.epoch(epoch=epoch, **shard)
         epoch += 1
 
 
-def _audit_first_batch(net, cfg: TrainConfig, state: TrainState, batch, key: Key) -> list:
-    """One-off missing-gradient audit: prints, and returns, the parameters whose
-    gradient on this batch is exactly zero."""
+def _audit_first_batch(net, cfg: TrainConfig, state: TrainState, batch, key: Key,
+                       verbose: bool = True) -> list:
+    """One-off missing-gradient audit: prints (when verbose), and returns, the
+    parameters whose gradient on this batch is exactly zero."""
     from geocalib_tpu_torch.training.debug import audit_gradients
 
     dead = audit_gradients(param_grads(net, cfg, state, batch, key)[1], cfg.variant)
-    if dead:
+    if verbose and dead:
         print(f"WARNING: {len(dead)} parameters receive zero gradient:")
         for name in dead[:20]:
             print(f"  {name}")
-    else:
+    elif verbose:
         print("gradient audit: every parameter receives gradient")
     return dead
 
@@ -149,22 +165,45 @@ def _variables(state: TrainState) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _replicated(state: TrainState, mesh: Optional[Mesh]) -> TrainState:
+    """The state with every tensor overwritten by rank 0's (the JAX loop's replicated
+    placement); as it is without a mesh."""
+    opt = state.opt_state
+    replicated([*state.params.values(), *state.batch_stats.values(), opt.count,
+                *opt.mu.values(), *opt.nu.values()], mesh)
+    return state
+
+
+def _global_batch(conf: Dict[str, Any], mesh: Optional[Mesh]) -> int:
+    """The conf's batch_size, the global batch, checked to divide by the ranks."""
+    batch_size = int(conf["data"]["batch_size"])
+    if batch_size % axis_size(mesh):
+        raise ValueError(f"batch_size {batch_size} is not divisible by {axis_size(mesh)} ranks")
+    return batch_size
+
+
 def _setup(conf: Dict[str, Any], output_dir, restore: bool, device):
-    """(device, writer, config, net, state, manager, start step) of a run."""
-    dev = resolve_device(device)
+    """(mesh, device, writer, config, net, state, manager, start step) of a run: the
+    mesh of the initialised process group (None without one) and this rank's device;
+    the writer is None on ranks other than 0."""
+    mesh = make_mesh(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    is_main = axis_index(mesh) == 0
     out_dir = Path(output_dir)
-    writer = SummaryWriter(out_dir / "logs")
-    save_yaml(conf, out_dir / "config.yaml")
+    writer = SummaryWriter(out_dir / "logs") if is_main else None
+    if is_main:
+        save_yaml(conf, out_dir / "config.yaml")
     cfg = make_train_config(conf)
-    net, state = create_train_state(cfg, seed=int(conf["seed"]), device=dev)
+    net, state = create_train_state(cfg, seed=int(conf["seed"]), device=dev, mesh=mesh)
     manager = ExperimentManager(out_dir)
     start_step = 0
     if restore and manager.latest_step() is not None:
         state, start_step = manager.restore(state)
-        print(f"restored checkpoint at step {start_step}")
+        if is_main:
+            print(f"restored checkpoint at step {start_step}")
     else:
-        state = _maybe_init_weights(state, conf)
-    return dev, writer, cfg, net, state, manager, start_step
+        state = _maybe_init_weights(state, conf, is_main)
+    return mesh, dev, writer, cfg, net, _replicated(state, mesh), manager, start_step
 
 
 def training(conf: Dict[str, Any], output_dir, restore: bool = False,
@@ -185,16 +224,19 @@ def training(conf: Dict[str, Any], output_dir, restore: bool = False,
         except ImportError as e:
             raise ImportError("train.figures_every > 0 asks for field figures, which need "
                               "matplotlib; install it or set train.figures_every=0") from e
-    dev, writer, cfg, net, state, manager, start_step = _setup(conf, output_dir, restore, device)
+    mesh, dev, writer, cfg, net, state, manager, start_step = _setup(conf, output_dir, restore,
+                                                                     device)
+    is_main = writer is not None
     dconf, t_conf = conf["data"], conf["train"]
-    batch_size = int(dconf["batch_size"])
+    batch_size = _global_batch(conf, mesh)
     # augmentation="device": a decode-only host loader and the photometric
     # augmentation inside the step, on the card
     aug_mode = dconf.get("augmentation", "geocalib")
     on_device_aug = aug_mode == "device"
     camera_model = dconf.get("camera_model", cfg.camera_model)
     train_ds = SimpleDataset(DatasetConf(
-        dataset_dir=dconf["dataset_dir"], csv_name="train.csv", batch_size=batch_size,
+        dataset_dir=dconf["dataset_dir"], csv_name="train.csv",
+        batch_size=batch_size // axis_size(mesh),
         augmentation="identity" if on_device_aug else aug_mode, seed=int(conf["seed"]),
         camera_model=camera_model))
     val_ds = SimpleDataset(DatasetConf(
@@ -211,12 +253,13 @@ def training(conf: Dict[str, Any], output_dir, restore: bool = False,
     t0 = time.time()
     loader = PrefetchLoader(train_ds)
     last_stall = 0.0
-    for batch in _loop_batches(train_ds, overfit, loader=loader):
+    for batch in _loop_batches(train_ds, overfit, loader=loader, mesh=mesh):
         if step >= total:
             break
-        batch = _to(batch, dev)
+        batch = shard_batch(batch, dev)
         if audit_grads and step == start_step:
-            _audit_first_batch(net, cfg, state, batch, rng)
+            # every rank runs it: the training forward's BatchNorms sync over the ranks
+            _audit_first_batch(net, cfg, state, batch, rng, verbose=is_main)
         rng, step_rng = split(rng)
         state, out = step_fn(state, batch, step_rng)
 
@@ -227,32 +270,46 @@ def training(conf: Dict[str, Any], output_dir, restore: bool = False,
             stall = loader.stall_s - last_stall
             last_stall = loader.stall_s
             t0 = time.time()
-            writer.add_scalars(scalars | {"images_per_s": rate, "loader_stall_s": stall}, step)
-            print(f"[{step}/{total}] loss {scalars.get('loss/total', np.nan):.4f} "
-                  f"param {scalars.get('loss/param_total', np.nan):.4f} "
-                  f"({rate:.1f} img/s, loader stall {stall:.2f}s)", flush=True)
+            if is_main:
+                writer.add_scalars(scalars | {"images_per_s": rate, "loader_stall_s": stall},
+                                   step)
+                print(f"[{step}/{total}] loss {scalars.get('loss/total', np.nan):.4f} "
+                      f"param {scalars.get('loss/param_total', np.nan):.4f} "
+                      f"({rate:.1f} img/s, loader stall {stall:.2f}s)", flush=True)
 
         if step > start_step and step % int(t_conf["eval_every"]) == 0:
             val = evaluate(eval_fn, state, val_ds, rng, dev,
                            max_batches=int(t_conf.get("val_batches", 10)),
                            eval_idx=step // int(t_conf["eval_every"]))
-            writer.add_scalars(val, step, prefix="val/")
-            fig_every = int(t_conf.get("figures_every", 0) or 0)
-            if fig_every and step % fig_every == 0:
-                _log_figures(writer, net, cfg, state, val_ds, step, dev)
             key = t_conf["best_key"]
-            if val.get(key, float("inf")) < best:
-                best = val[key]
-                manager.save(state, step, conf, val, is_best=True)
+            if is_main:
+                writer.add_scalars(val, step, prefix="val/")
+                fig_every = int(t_conf.get("figures_every", 0) or 0)
+                if fig_every and step % fig_every == 0:
+                    _log_figures(writer, net, cfg, state, val_ds, step, dev)
+                if val.get(key, float("inf")) < best:
+                    best = val[key]
+                    manager.save(state, step, conf, val, is_best=True)
 
-        _maybe_benchmark(conf, state, cfg, writer, step, start_step, dev)
-        if step > start_step and step % int(t_conf["save_every"]) == 0:
-            manager.save(state, step, conf)
+        if is_main:
+            _maybe_benchmark(conf, state, cfg, writer, step, start_step, dev)
+            if step > start_step and step % int(t_conf["save_every"]) == 0:
+                manager.save(state, step, conf)
         step += 1
 
-    manager.save(state, step, conf, scalars)
-    writer.close()
+    _finish(manager, writer, state, step, conf, scalars, mesh)
     return scalars
+
+
+def _finish(manager: ExperimentManager, writer: Optional[SummaryWriter], state: TrainState,
+            step: int, conf: Dict[str, Any], scalars: Dict[str, float],
+            mesh: Optional[Mesh]) -> None:
+    """Rank 0 saves the last checkpoint and closes the logs; every rank returns only
+    once it is written (a later restore on any rank reads it)."""
+    if writer is not None:
+        manager.save(state, step, conf, scalars)
+        writer.close()
+    barrier(mesh)
 
 
 def _log_figures(writer: SummaryWriter, net, cfg: TrainConfig, state: TrainState,
@@ -262,7 +319,8 @@ def _log_figures(writer: SummaryWriter, net, cfg: TrainConfig, state: TrainState
     from geocalib_tpu_torch.visualization.visualize_batch import make_perspective_figures
     from geocalib_tpu_torch.visualization.viz2d import _plt
 
-    data = synthesize_gt_fields(_to(next(iter(val_ds.epoch(epoch=0))), dev), cfg.camera_model)
+    data = synthesize_gt_fields(shard_batch(next(iter(val_ds.epoch(epoch=0))), dev),
+                                cfg.camera_model)
     dtype = DTYPES[cfg.compute_dtype]
     params = {k: v.to(dtype) if v.dtype == torch.float32 else v for k, v in state.params.items()}
     with torch.no_grad():
@@ -290,7 +348,8 @@ def _maybe_benchmark(conf, state: TrainState, cfg: TrainConfig, writer: SummaryW
         writer.add_scalars(summary, step, prefix=f"bench/{name}/")
 
 
-def _maybe_init_weights(state: TrainState, conf: Dict[str, Any]) -> TrainState:
+def _maybe_init_weights(state: TrainState, conf: Dict[str, Any], verbose: bool = True
+                        ) -> TrainState:
     """Parameters and running statistics from ``train.init_weights`` (a Flax msgpack;
     the radial fine-tune starts from the pinhole model), the optimizer state as it is.
     Not used when a checkpoint is restored."""
@@ -299,7 +358,8 @@ def _maybe_init_weights(state: TrainState, conf: Dict[str, Any]) -> TrainState:
         return state
     sd = params_from_jax(read_flax_msgpack(init_w), conf["train"].get("variant", "b"))
     place = lambda tree: {k: sd[k].to(v.device, v.dtype) for k, v in tree.items()}
-    print(f"initialized weights from {init_w}")
+    if verbose:
+        print(f"initialized weights from {init_w}")
     return TrainState(state.step, place(state.params), place(state.batch_stats),
                       state.opt_state)
 
@@ -307,14 +367,17 @@ def _maybe_init_weights(state: TrainState, conf: Dict[str, Any]) -> TrainState:
 def _staged_training(conf: Dict[str, Any], output_dir, restore: bool = False,
                      max_steps: Optional[int] = None, device=None) -> Dict[str, float]:
     """The training loop on a dataset staged on the card: the schedule, logging and
-    checkpoints of ``training``, with every batch sampled and augmented there."""
+    checkpoints of ``training``, with every batch sampled and augmented there (over a
+    mesh, each rank stages its 1/W of the rows and samples its 1/W of the batch)."""
     from geocalib_tpu_torch.training.device_store import (DeviceStore, make_staged_eval_step,
                                                           make_staged_train_step,
                                                           staged_evaluate)
 
-    dev, writer, cfg, net, state, manager, start_step = _setup(conf, output_dir, restore, device)
+    mesh, dev, writer, cfg, net, state, manager, start_step = _setup(conf, output_dir, restore,
+                                                                     device)
+    is_main = writer is not None
     dconf, t_conf = conf["data"], conf["train"]
-    batch_size = int(dconf["batch_size"])
+    batch_size = _global_batch(conf, mesh)
     mk_ds = lambda csv: SimpleDataset(DatasetConf(
         dataset_dir=dconf["dataset_dir"], csv_name=csv, batch_size=batch_size,
         augmentation="identity", camera_model=dconf.get("camera_model", cfg.camera_model)))
@@ -329,13 +392,15 @@ def _staged_training(conf: Dict[str, Any], output_dir, restore: bool = False,
     def stage_train() -> DeviceStore:
         idx = (store_rng.choice(len(train_ds.rows), size=staged_subset, replace=False)
                if subset else None)
-        return DeviceStore.stage_sharded(train_ds, row_indices=idx, device=dev)
+        return DeviceStore.stage_sharded(train_ds, mesh, row_indices=idx, device=dev,
+                                         progress=print if is_main else None)
 
     store = stage_train()
     val_ds = mk_ds("val.csv")
     val_cap = int(t_conf.get("staged_val_rows", 2048) or 0)
     val_idx = range(min(val_cap, len(val_ds.rows))) if val_cap else None
-    val_store = DeviceStore.stage_sharded(val_ds, row_indices=val_idx, device=dev)
+    val_store = DeviceStore.stage_sharded(val_ds, mesh, row_indices=val_idx, device=dev,
+                                          progress=print if is_main else None)
 
     augment = dconf.get("augmentation", "geocalib") != "identity"
     step_fn = make_staged_train_step(net, cfg, batch_size, augment=augment)
@@ -357,27 +422,28 @@ def _staged_training(conf: Dict[str, Any], output_dir, restore: bool = False,
             rate = (batch_size * int(t_conf["log_every"]) / (time.time() - t0)
                     if step > start_step else 0.0)
             t0 = time.time()
-            writer.add_scalars(scalars | {"images_per_s": rate}, step)
-            print(f"[{step}/{total}] loss {scalars.get('loss/total', np.nan):.4f} "
-                  f"param {scalars.get('loss/param_total', np.nan):.4f} ({rate:.1f} img/s)",
-                  flush=True)
+            if is_main:
+                writer.add_scalars(scalars | {"images_per_s": rate}, step)
+                print(f"[{step}/{total}] loss {scalars.get('loss/total', np.nan):.4f} "
+                      f"param {scalars.get('loss/param_total', np.nan):.4f} ({rate:.1f} img/s)",
+                      flush=True)
 
         if step > start_step and step % int(t_conf["eval_every"]) == 0:
-            val = staged_evaluate(eval_fn, state, val_store, rng, batch_size,
+            val = staged_evaluate(eval_fn, state, val_store, rng,
                                   max_batches=int(t_conf.get("val_batches", 10)),
                                   eval_idx=step // int(t_conf["eval_every"]))
-            writer.add_scalars(val, step, prefix="val/")
             key = t_conf["best_key"]
-            print(f"[{step}] val {key} = {val.get(key, np.nan):.4f}", flush=True)
-            if val.get(key, float("inf")) < best:
-                best = val[key]
-                manager.save(state, step, conf, val, is_best=True)
+            if is_main:
+                writer.add_scalars(val, step, prefix="val/")
+                print(f"[{step}] val {key} = {val.get(key, np.nan):.4f}", flush=True)
+                if val.get(key, float("inf")) < best:
+                    best = val[key]
+                    manager.save(state, step, conf, val, is_best=True)
 
-        if step > start_step and step % int(t_conf["save_every"]) == 0:
+        if is_main and step > start_step and step % int(t_conf["save_every"]) == 0:
             manager.save(state, step, conf)
 
-    manager.save(state, total, conf, scalars)
-    writer.close()
+    _finish(manager, writer, state, total, conf, scalars, mesh)
     return scalars
 
 
@@ -394,7 +460,7 @@ def evaluate(eval_fn, state: TrainState, dataset: SimpleDataset, key: Key, devic
         if taken >= max_batches:
             break
         taken += 1
-        for k, v in eval_fn(state, _to(batch, device), key).items():
+        for k, v in eval_fn(state, shard_batch(batch, device), key).items():
             agg.setdefault(k, []).append(float(v))
     if not agg:
         print("WARNING: val split smaller than one batch; no val metrics computed")
@@ -416,7 +482,8 @@ def main(argv=None):
     ap.add_argument("--audit_grads", action="store_true",
                     help="name the parameters with a zero gradient on the first step")
     ap.add_argument("--output_root", default="outputs/training")
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; under torchrun cuda:LOCAL_RANK) or cpu")
     ap.add_argument("dotlist", nargs="*", help="a.b=c overrides")
     args = ap.parse_args(argv)
 
@@ -424,10 +491,15 @@ def main(argv=None):
     conf = apply_dotlist(conf, args.dotlist)
     from geocalib_tpu_torch.training.debug import detect_anomaly
 
-    with detect_anomaly() if args.detect_anomaly else contextlib.nullcontext():
-        training(conf, Path(args.output_root) / args.experiment, restore=args.restore,
-                 overfit=args.overfit, audit_grads=args.audit_grads, staged=args.staged,
-                 device=args.device)
+    group = maybe_initialize_distributed(args.device)
+    try:
+        with detect_anomaly() if args.detect_anomaly else contextlib.nullcontext():
+            training(conf, Path(args.output_root) / args.experiment, restore=args.restore,
+                     overfit=args.overfit, audit_grads=args.audit_grads, staged=args.staged,
+                     device=args.device)
+    finally:
+        if group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,20 @@
-"""One training step on one device: the network, the differentiable LM, the
-losses, the backward and AdamW.
+"""One training step: the network, the differentiable LM, the losses, the
+backward and AdamW, data-parallel over the ranks of a mesh.
 
-Port of geocalib_tpu/training/train_step.py for a single device, so with no
-collectives: the data-axis index folded into the key is 0, and the
-gradient, loss and BatchNorm means over the mesh are the device's own.
+Port of geocalib_tpu/training/train_step.py, whose shard_map step is here one
+process per device (parallel/mesh.py). The step reads the mesh from the
+network (``net.mesh``, given to ``create_train_state``), and with it:
+- the key is folded with the rank (the JAX step's data-axis index) for
+  DropPath and the NMF, and ``fold_in(fold_in(key, 1), rank)`` keys the device
+  augmentation;
+- the BatchNorms sync their batch statistics over the ranks (models/modules.py);
+- the flat gradient vector that ``optimizer_update`` builds takes one mean over
+  the ranks, before the zeroing of non-finite values and the clip, so every
+  rank makes the same update; the loss and every scalar are means over the
+  ranks (one collective), and a non-finite loss on any rank skips the step on
+  every rank (the NaN vote, a minimum over the ranks).
+Without a mesh the rank is 0 and nothing crosses processes; with a one-rank
+group every result is bit for bit the same as without one.
 
 - Mixed precision as the JAX step: float32 master parameters, cast to the
   compute dtype for the forward through ``torch.func.functional_call``, so
@@ -42,6 +53,7 @@ from geocalib_tpu_torch.extractor import DTYPES, resolve_device
 from geocalib_tpu_torch.models.geocalib_net import RUNNING_STATS, GeoCalibNet
 from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
 from geocalib_tpu_torch.optim.lm import LMConfig, run_lm
+from geocalib_tpu_torch.parallel.mesh import Mesh, axis_index, mean_over_ranks, min_over_ranks
 from geocalib_tpu_torch.training.debug import check_finite
 from geocalib_tpu_torch.training.losses import geocalib_losses, geocalib_metrics
 from geocalib_tpu_torch.utils.threefry import Key, fold_in, split
@@ -133,19 +145,20 @@ def _unflat(flat: Tensor, like: Tree) -> Tree:
 
 
 def optimizer_update(grads: Tree, state: AdamState, params: Tree, cfg: TrainConfig,
-                     finite: Union[bool, Tensor] = True
+                     finite: Union[bool, Tensor] = True, mesh: Optional[Mesh] = None
                      ) -> Tuple[Tree, AdamState, Dict[str, Tensor]]:
     """The step's optimizer: (new parameters, new state, {"grad_norm", "grad_nonfinite"}).
 
-    Non-finite gradient values are zeroed (which subsumes optax's zero_nans), then
-    optax's clip_by_global_norm and adamw, each element's arithmetic optax's in its
-    order, and the update applied. Where `finite` is false (a non-finite loss) the
+    The gradients, concatenated into one vector, take their mean over the mesh's
+    ranks (one collective; none without a mesh). Non-finite gradient values are
+    zeroed (which subsumes optax's zero_nans), then optax's clip_by_global_norm and
+    adamw, each element's arithmetic optax's in its order, and the update applied. Where `finite` is false (a non-finite loss) the
     parameters and state are kept. Each operation is one kernel over the leaves
     concatenated into one vector; the results are views of those vectors. grad_norm
-    is the norm after the zeroing, before the clip.
+    is the norm after the mean and the zeroing, before the clip.
     """
     names = list(params)
-    g = _flat(grads, names)
+    g = mean_over_ranks(_flat(grads, names), mesh)
     ok = torch.isfinite(g)
     g = torch.where(ok, g, 0.0)
     p, mu, nu = (_flat(t, names) for t in (params, state.mu, state.nu))
@@ -176,17 +189,19 @@ class TrainState:
 
 
 def create_train_state(cfg: TrainConfig, weights: Optional[Union[str, Path, Tree]] = None,
-                       seed: int = 0, device: Optional[Union[str, torch.device]] = "cuda"
-                       ) -> Tuple[GeoCalibNet, TrainState]:
-    """The network in training mode on `device` and its training state.
+                       seed: int = 0, device: Optional[Union[str, torch.device]] = "cuda",
+                       mesh: Optional[Mesh] = None) -> Tuple[GeoCalibNet, TrainState]:
+    """The network in training mode on `device` (the mesh's device, with a mesh) and
+    its training state; the network carries the mesh (``net.mesh``).
 
     weights: a Flax msgpack file of the JAX package, a state_dict, or None for
     torch's own initialization seeded with `seed`. ``device="cuda"`` raises
-    when there is no card.
+    when there is no card. The state is not broadcast here: the loop replicates
+    it from rank 0 (``parallel.mesh.replicated``).
     """
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     torch.manual_seed(seed)
-    net = GeoCalibNet(cfg.variant, cfg.drop_path_rate)
+    net = GeoCalibNet(cfg.variant, cfg.drop_path_rate, mesh)
     if weights is not None:
         if isinstance(weights, (str, Path)):
             weights = params_from_jax(read_flax_msgpack(weights), cfg.variant)
@@ -264,24 +279,31 @@ def param_grads(net: GeoCalibNet, cfg: TrainConfig, state: TrainState, batch: Di
 
 def compute_grads(net: GeoCalibNet, cfg: TrainConfig, state: TrainState, batch: Dict[str, Any],
                   key: Key):
-    """``param_grads`` of one step, before any sanitising, with the step's key folded
-    as train_step folds it (the data-axis index of the one device, 0)."""
-    return param_grads(net, cfg, state, batch, fold_in(key, 0))
+    """This rank's ``param_grads`` of one step, before the mean over the ranks and any
+    sanitising, with the step's key folded with the rank as train_step folds it."""
+    return param_grads(net, cfg, state, batch, fold_in(key, axis_index(net.mesh)))
 
 
 def train_step(net: GeoCalibNet, cfg: TrainConfig, state: TrainState, batch: Dict[str, Any],
                key: Key) -> Tuple[TrainState, Dict[str, Tensor]]:
-    """One step: (new state, scalars). The scalars are the mean of every loss and
-    metric, skipped_nonfinite (1 when the loss was not finite and nothing
-    moved), grad_nonfinite and grad_norm (after zeroing, before the clip). The
-    optimizer, the update and the keep-if-finite run on the leaves concatenated
-    into one vector each, a few dozen launches in all and no host sync; the new
-    state's leaves are views of those vectors."""
+    """One step on this rank's rows: (new state, scalars). The scalars are the mean
+    of every loss and metric over the whole batch (over the ranks),
+    skipped_nonfinite (1 when the loss was not finite and nothing moved),
+    grad_nonfinite and grad_norm (after the mean over the ranks and the zeroing,
+    before the clip). The optimizer, the update and the keep-if-finite run on the
+    leaves concatenated into one vector each, a few dozen launches in all and no
+    host sync; the new state's leaves are views of those vectors."""
+    mesh = net.mesh
     loss, grads, new_stats, losses, metrics = compute_grads(net, cfg, state, batch, key)
     check_finite(loss, grads)
-    finite = torch.isfinite(loss)
+    names = [f"loss/{k}" for k in losses] + [f"metric/{k}" for k in metrics]
+    means = mean_over_ranks(torch.stack([loss] + [v.detach().mean() for v in losses.values()]
+                                        + [v.detach().mean() for v in metrics.values()]), mesh)
+    # JAX's pmin vote; the mean is already equal on every rank, so the vote changes no
+    # result and keeps the step's collectives those of the JAX step
+    finite = min_over_ranks(torch.isfinite(means[0]).float(), mesh) > 0.5
     params, opt_state, grad_scalars = optimizer_update(grads, state.opt_state, state.params, cfg,
-                                                       finite)
+                                                       finite, mesh)
     state = TrainState(
         step=state.step + 1,
         params=params,
@@ -289,27 +311,28 @@ def train_step(net: GeoCalibNet, cfg: TrainConfig, state: TrainState, batch: Dic
                      for k, v in state.batch_stats.items()},
         opt_state=opt_state,
     )
-    scalars = {f"loss/{k}": v.detach().mean() for k, v in losses.items()}
-    scalars |= {f"metric/{k}": v.detach().mean() for k, v in metrics.items()}
+    scalars = dict(zip(names, means[1:].unbind(0)))
     scalars["skipped_nonfinite"] = 1.0 - finite.float()
     scalars |= grad_scalars
     return state, scalars
 
 
-def augment_batch(batch: Dict[str, Any], key: Key) -> Dict[str, Any]:
+def augment_batch(batch: Dict[str, Any], key: Key, mesh: Optional[Mesh] = None
+                  ) -> Dict[str, Any]:
     """The batch with its images through the device augmentation, keyed as the JAX
-    package's step keys it on one device: fold_in(fold_in(key, 1), 0)."""
-    return dict(batch, image=device_augment(batch["image"], fold_in(fold_in(key, 1), 0)))
+    package's sharded step keys it: fold_in(fold_in(key, 1), rank)."""
+    k_aug = fold_in(fold_in(key, 1), axis_index(mesh))
+    return dict(batch, image=device_augment(batch["image"], k_aug))
 
 
 def make_train_step(net: GeoCalibNet, cfg: TrainConfig, augment_on_device: bool = False):
-    """step(state, batch, key) -> (state, scalars): train_step, after the device
-    augmentation of the batch's images when augment_on_device (the loader's
-    augmentation="device" mode)."""
+    """step(state, batch, key) -> (state, scalars): train_step on this rank's rows,
+    after the device augmentation of the batch's images when augment_on_device (the
+    loader's augmentation="device" mode); the JAX package's make_sharded_train_step."""
 
     def step(state: TrainState, batch: Dict[str, Any], key: Key):
         if augment_on_device:
-            batch = augment_batch(batch, key)
+            batch = augment_batch(batch, key, net.mesh)
         return train_step(net, cfg, state, batch, key)
 
     return step

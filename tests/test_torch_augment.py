@@ -31,6 +31,7 @@ from geocalib_tpu.training import device_store as jstore
 from geocalib_tpu.utils.image import write_image
 from geocalib_tpu_torch.data import augmentations as taug, device_augment as tdev
 from geocalib_tpu_torch.data.dataset import DatasetConf, PrefetchLoader, SimpleDataset
+from geocalib_tpu_torch.parallel.mesh import Mesh
 from geocalib_tpu_torch.training import device_store as tstore
 from geocalib_tpu_torch.utils import threefry
 
@@ -189,5 +190,10 @@ def test_device_store_stages_and_samples_as_jax(dataset_dir):
         out = tstore.sample_batch(store.images, store.gt_params, tk, 5, augment="geocalib")
         d = np.abs(out["image"].numpy() - np.asarray(ref["image"]))
         assert (d <= 1e-6).mean() >= 0.999 and d.max() <= 1 / 24
-    with pytest.raises(NotImplementedError, match="Queue 1, distributed"):
-        tstore.DeviceStore.stage_sharded(ds, num_shards=2)
+    # over a mesh of two ranks, rank r stages the r-th contiguous half of the rows
+    halves = [tstore.DeviceStore.stage_sharded(ds, Mesh(r, 2, torch.device("cpu")),
+                                               chunk_images=4, progress=None) for r in (0, 1)]
+    assert [len(h) for h in halves] == [len(ds.rows) // 2] * 2
+    assert torch.equal(torch.cat([h.images for h in halves]), store.images[:2 * len(halves[0])])
+    assert torch.equal(torch.cat([h.gt_params for h in halves]),
+                       store.gt_params[:2 * len(halves[0])])

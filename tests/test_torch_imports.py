@@ -18,6 +18,7 @@ held against it here.
 """
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -74,6 +75,28 @@ def test_importing_the_package_loads_no_optional_module():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_distributed_and_profiling_modules_are_guarded():
+    """The data-parallel package and the two small utilities are among the files whose
+    imports are held above, and importing them starts no process group, even with
+    torchrun's environment set (the group is initialised only when asked for)."""
+    guarded = {str(p.relative_to(ROOT)) for p in FILES}
+    for name in ("parallel/__init__.py", "parallel/mesh.py", "utils/profiling.py",
+                 "utils/stdout_capturing.py"):
+        assert f"geocalib_tpu_torch/{name}" in guarded, name
+    env = dict(os.environ, WORLD_SIZE="2", RANK="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT="1")
+    code = ("import torch.distributed as dist\n"
+            "import geocalib_tpu_torch.parallel\n"
+            "from geocalib_tpu_torch.parallel import mesh\n"
+            "import geocalib_tpu_torch.utils.profiling, geocalib_tpu_torch.utils.stdout_capturing\n"
+            "print(dist.is_initialized(), mesh.process_index(), mesh.process_count(), "
+            "mesh.make_mesh())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "0", "1", "None"], out.stdout
 
 
 def test_read_flax_msgpack_matches_flax(tmp_path):
