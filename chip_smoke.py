@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of geocalib_tpu_torch on one CUDA card: the port still starts.
 
-Builds the CUDA kernels from geocalib_tpu_torch/csrc, serves five
+Builds the CUDA kernels from geocalib_tpu_torch/csrc, serves six
 GeoCalib.calibrate requests at MSCAN-B width on the committed weights
 (weights/geocalib_synth_r05.msgpack), one for each path:
 
@@ -11,20 +11,28 @@ GeoCalib.calibrate requests at MSCAN-B width on the committed weights
   d  8 views of one camera, radial, shared intrinsics
   e  4 views through a division-model lens, simple_divisional, served by a
      second GeoCalib with the heuristic init
+  f  request a's views through a third GeoCalib with compute_dtype="float32"
+     (the network and the NMF kernel's float32 instance in float32)
 
 Each request's launch counts are set to 0 just before it and read just after,
 and it must have launched both kernels (the LM kernel in its camera model's
-instance). Then it holds each kernel against its plain PyTorch version at the
-serving shapes of requests a, c, d and e, traces one LM kernel call with
-torch.profiler (it must be one launch), times the NMF kernel and each of the
-LM kernel's four model instances at request a's shape and at one lane of it,
-checks that two NMF launches give the same bits, prints the registers and
-spills of the kernels (and fails if a bf16 NMF stage spills), and ends with
-the whole-path gate: requests a, c, d and e served again by the kernels and
-by the plain versions, converged (the solver's early stop off, so every lane
-runs all 30 iterations: roll, pitch and vFoV within 0.05 degrees in every
-lane) and serving (early stop on, as users run it: lanes that stop at the
-same iteration within 0.05 degrees of roll, pitch and vFoV; lanes that stop
+instance, the NMF kernel in its network's dtype). Then it holds each kernel
+against its plain PyTorch version at the serving shapes of requests a, c, d
+and e, traces one LM kernel call with torch.profiler (it must be one launch),
+times the NMF kernel and each of the LM kernel's four model instances at
+request a's shape and at one lane of it, checks that two NMF launches give the
+same bits, and holds the NMF kernel's float32 instance (TF32 tensor cores,
+three products a product) on request f's tokens against nmf_plain in full
+float32 (relative Frobenius within NMF_F32_TOL, a control of one step fewer
+that must exceed it, nmf_plain with cuBLAS in TF32 as a control that must
+deviate more, two launches bit for bit), timed beside its bound on TF32 and
+its float32 FMA bound; nmf_plain always runs with TF32 off. It prints the
+registers and spills of the kernels (and fails if an NMF stage spills), and
+ends with the whole-path gate: requests a, c, d, e and f served again by the
+kernels and by the plain versions, converged (the solver's early stop off, so
+every lane runs all 30 iterations: roll, pitch and vFoV within 0.05 degrees in
+every lane) and serving (early stop on, as users run it: lanes that stop at
+the same iteration within 0.05 degrees of roll, pitch and vFoV; lanes that stop
 apart must be one iteration apart, and are named).
 
 Then the eval phase, a path of its own (the port's eval/pipeline.py): 64
@@ -193,6 +201,7 @@ WEIGHTS = ROOT / "weights" / "geocalib_synth_r05.msgpack"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12  # the float32 NMF takes each product as three TF32 products
 # Float operations per pixel of the LM system with all five planes and the huber
 # loss, counted by hand from its formulas (IEEE divisions and square roots): an
 # FMA as two, a sqrt, division, negation, max or compare as one, a subexpression
@@ -214,7 +223,7 @@ LM_TOL = 1e-4    # f32 relative deviation of G, H and cost: sums taken in anothe
 NMF_TOL = 2e-2   # relative Frobenius error of the bf16 reconstruction, 7 steps
 NMF_F32_TOL = 1e-4  # the same for the float32 instance
 ANGLE_TOL = 0.05  # degrees, whole path with kernels against the plain versions
-GATE_REQUESTS = ("a", "c", "d", "e")  # served by both routes for the whole-path gate
+GATE_REQUESTS = ("a", "c", "d", "e", "f")  # served by both routes for the whole-path gate
 WATCHDOG_S = 600  # a hung kernel becomes a traceback after this many seconds
 ROLL_TOL = 3.0    # degrees, request a's roll against the rendered views (r05 weights)
 FOCAL_PRIOR = {"focal": 500.0}  # request c's prior, in input pixels
@@ -399,12 +408,14 @@ def serve(calib, name: str, *args, **kw):
     zero_counts()
     out = timed_request(calib, name, *args, **kw)
     model = kw.get("camera_model", "pinhole")
+    dtype = str(calib.compute_dtype).removeprefix("torch.")
     counts = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches,
+              "nmf_by_dtype": dict(nmf_ops.nmf.launches_by_dtype),
               "lm_system_by_model": {k: n for k, n in lm_ops.lm_system.launches_by_model.items()
                                      if n}}
     log(f"request {name}: launches {json.dumps(counts)}")
-    check(counts["nmf"] > 0 and counts["lm_system_by_model"].get(model, 0) > 0,
-          f"request {name}: a kernel of its path was not launched: {counts}")
+    check(counts["nmf_by_dtype"][dtype] > 0 and counts["lm_system_by_model"].get(model, 0) > 0,
+          f"request {name}: a kernel of its path was not launched ({dtype} NMF): {counts}")
     return out, counts
 
 
@@ -412,6 +423,7 @@ def serve(calib, name: str, *args, **kw):
 def plain_versions(lm: bool = True, nmf: bool = True):
     """Route the serving path through the plain PyTorch version of the chosen kernels."""
     lm_fn, nmf_fn = lm_solver.lm_system, hamburger.nmf_reconstruct
+    exact_matmul()
     if lm:
         lm_solver.lm_system = lm_ops.lm_system_plain
     if nmf:
@@ -689,8 +701,33 @@ def nmf_cost(x: torch.Tensor, bases: torch.Tensor, steps: int) -> Tuple[int, int
     return x.element_size() * B * (N * D + D * R + N * R + R * D), 2 * B * macs
 
 
+def nmf_bound(x: torch.Tensor, bases: torch.Tensor, steps: int) -> dict:
+    """The least time of one NMF on the card: the larger of its bytes over the memory
+    rate and its operations over the peak of the units that can compute them at its
+    accuracy: bf16 tensor cores for bf16; for float32, three TF32 products a product
+    (the split that keeps float32 accuracy), with the float32 FMA bound beside it."""
+    nbytes, flops = nmf_cost(x, bases, steps)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops / BF16_FLOPS if x.dtype == torch.bfloat16 else 3 * flops / TF32_FLOPS) * 1e3
+    out = {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+           "operations", "bytes": nbytes, "flops": flops}
+    if x.dtype == torch.float32:
+        out["fma_bound_ms"] = max(t_bytes, flops / F32_FLOPS * 1e3)
+    return out
+
+
+def exact_matmul() -> None:
+    """cuBLAS's float32 products in full float32 (no TF32), for nmf_plain as a reference."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmul must not run in TF32 where nmf_plain is the reference")
+
+
 def nmf_phase(calib, images: np.ndarray) -> dict:
-    """The NMF kernels against nmf_plain on request (a)'s stacked head tokens."""
+    """The NMF kernel's bf16 instance against nmf_plain on the stacked head tokens of
+    these views (request a's, or an eval batch's)."""
+    exact_matmul()
     crop = calib.preprocessor(torch.from_numpy(images).to(calib.device))["image"]
     with torch.inference_mode():
         tokens, bases = calib.net.front(crop.to(calib.compute_dtype))[3:]
@@ -714,21 +751,63 @@ def nmf_phase(calib, images: np.ndarray) -> dict:
     plain_ms = cuda_ms(lambda: nmf_ops.nmf_plain(tokens, bases, steps), reps=3, per_graph=2)
     B, N, D = tokens.shape
     R = bases.shape[2]
-    esize = tokens.element_size()
-    nbytes, flops = nmf_cost(tokens, bases, steps)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    bound = nmf_bound(tokens, bases, steps)
     log(f"nmf kernel B={B} N={N} D={D} R={R}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms")
-    # the float32 instance (FMA loops, not on the serving path) on the same tokens
-    x32, b32 = tokens.float(), bases.float()
-    f32_ms = cuda_ms(lambda: nmf_ops.nmf(x32, b32, steps), reps=3, per_graph=2)
-    f32_bound_ms = max(4 / esize * t_bytes, flops / F32_FLOPS * 1e3)
-    log(f"nmf kernel, float32 instance, same shape: {f32_ms:.4f} ms, bound {f32_bound_ms:.4f} ms "
-        f"(operations at {F32_FLOPS / 1e12:.0f} TFLOP/s)")
+        f"{bound['bytes'] / 1e6:.1f} MB, {bound['flops'] / 1e9:.1f} GFLOP: bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "tensor_cores": "mma.sync", "tokens_per_chunk": nmf_ops.TOKENS_PER_CHUNK,
-            "f32_ms": f32_ms, "f32_bound_ms": f32_bound_ms}
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None,
+            "tensor_cores": "mma.sync", "tokens_per_chunk": nmf_ops.TOKENS_PER_CHUNK}
+
+
+def nmf_f32_phase(calib_f, images: np.ndarray, card: str) -> dict:
+    """The NMF kernel's float32 instance (TF32 tensor cores, three products a product)
+    on request f's stacked head tokens (the float32 network on request a's views):
+    against nmf_plain in full float32 within NMF_F32_TOL beside a control of one step
+    fewer, which must exceed it; against nmf_plain with cuBLAS in TF32 (one product),
+    which must deviate more; two launches bit for bit; timed beside its bounds."""
+    exact_matmul()
+    crop = calib_f.preprocessor(torch.from_numpy(images).to(calib_f.device))["image"]
+    with torch.inference_mode():
+        x, bases = calib_f.net.front(crop.to(calib_f.compute_dtype))[3:]
+    check(x.dtype == torch.float32, f"request f's tokens are {x.dtype}")
+    steps = hamburger.NMF_EVAL_STEPS
+    out = nmf_check("nmf phase, request f's tokens", x, bases, steps)
+    check(out["ok"], f"the float32 NMF at request f's tokens {out}")
+    try:  # a control: the plain version with its products in one TF32 pass
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32_ref = torch.matmul(*nmf_ops.nmf_plain(x, bases, steps)).float()
+    finally:
+        exact_matmul()
+    ref = torch.matmul(*nmf_ops.nmf_plain(x, bases, steps)).float()
+    out["tf32_control_rel"] = float(torch.linalg.norm((tf32_ref - ref).flatten())
+                                    / torch.linalg.norm(ref.flatten()))
+    log(f"nmf kernel, float32 instance: {out['rel']:.3e} from nmf_plain in float32, against "
+        f"{out['tf32_control_rel']:.3e} for nmf_plain with cuBLAS in TF32 (control)")
+    check(out["rel"] < out["tf32_control_rel"],
+          "the float32 NMF is no closer to float32 than one TF32 product")
+    first, second = nmf_ops.nmf(x, bases, steps), nmf_ops.nmf(x, bases, steps)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"nmf kernel, float32 instance, two launches: coef and bt bitwise equal: {same}")
+    check(same, "the float32 NMF is not deterministic")
+    out |= nmf_f32_times(x, bases, steps, "request f's shape", card)
+    return out
+
+
+def nmf_f32_times(x: torch.Tensor, bases: torch.Tensor, steps: int, label: str, card: str,
+                  *args) -> dict:
+    """The float32 instance's time and nmf_plain's (full float32) beside both bounds."""
+    exact_matmul()
+    ms = cuda_ms(lambda: nmf_ops.nmf(x, bases, steps, *args), reps=3, per_graph=2)
+    plain_ms = cuda_ms(lambda: nmf_ops.nmf_plain(x, bases, steps, *args), reps=3, per_graph=2)
+    bound = nmf_bound(x, bases, steps)
+    log(f"nmf kernel, float32 instance at {label} {tuple(x.shape)} R={bases.shape[2]}: "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}; {bound['bytes'] / 1e6:.1f} MB, 3 x {bound['flops'] / 1e9:.1f} "
+        f"GFLOP at {TF32_FLOPS / 1e12:.0f} TFLOP/s TF32), float32 FMA bound "
+        f"{bound['fma_bound_ms']:.4f} ms; card {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **{k: bound[k] for k in ("bound_ms", "bound_by", "fma_bound_ms")}}
 
 
 def ptxas_entries(entries: dict) -> dict:
@@ -757,13 +836,19 @@ def resident_blocks(report: str, threads: int) -> int:
 
 
 def nmf_ptxas() -> dict:
-    """The NMF kernel's bf16 stage kernels, tensor-core stages first."""
+    """The NMF kernel's stage kernels, bf16 then float32, tensor-core stages first."""
     return ptxas_entries({"coef (init), tensor cores": "nmf_coef_tc_kernelILb1E",
                           "coef (update), tensor cores": "nmf_coef_tc_kernelILb0E",
                           "stats, tensor cores": "nmf_stats_tc_kernel",
                           "gram, tensor cores": "nmf_gram_tc_kernel",
                           "norm": "nmf_norm_kernelI13__nv_bfloat16E",
-                          "bases": "nmf_bases_kernelI13__nv_bfloat16E"})
+                          "bases": "nmf_bases_kernelI13__nv_bfloat16E",
+                          "float32 coef (init), TF32 x3": "nmf_coef_tf32_kernelILb1E",
+                          "float32 coef (update), TF32 x3": "nmf_coef_tf32_kernelILb0E",
+                          "float32 stats, TF32 x3": "nmf_stats_tf32_kernel",
+                          "float32 gram, TF32 x3": "nmf_gram_tf32_kernel",
+                          "float32 norm": "nmf_norm_kernelIfE",
+                          "float32 bases": "nmf_bases_kernelIfE"})
 
 
 def spills(report: str) -> bool:
@@ -772,10 +857,11 @@ def spills(report: str) -> bool:
                                           report))
 
 
-def smoke_requests(calib, calib_h) -> Tuple[dict, dict]:
-    """Requests a to e, name -> (calibrator, image(s), calibrate options), and the
+def smoke_requests(calib, calib_h, calib_f=None) -> Tuple[dict, dict]:
+    """Requests a to f, name -> (calibrator, image(s), calibrate options), and the
     rendered views' (roll, pitch, vfov) in degrees of a, d and e. ``calib_h``
-    serves e and must use the heuristic init."""
+    serves e and must use the heuristic init; ``calib_f`` (a float32 GeoCalib) serves
+    f, request a's views through the float32 network, and f is left out without it."""
     images, truth = scenes(np.random.default_rng(0), 16, 480, 640)
     images_d, truth_d = scenes(np.random.default_rng(1), 8, 480, 640, vfov=SHARED_VFOV)
     images_e, truth_e = scenes(np.random.default_rng(2), 4, 480, 640, k1=DIVISION_K1)
@@ -787,6 +873,8 @@ def smoke_requests(calib, calib_h) -> Tuple[dict, dict]:
                                 "batched": True}),
         "e": (calib_h, images_e, {"camera_model": "simple_divisional", "batched": True}),
     }
+    if calib_f is not None:
+        requests["f"] = (calib_f, images, {"batched": True})
     return requests, {"a": truth, "d": truth_d, "e": truth_e}
 
 
@@ -2099,6 +2187,7 @@ def nmf_check(label: str, x, bases, steps: int, *args) -> dict:
     """The NMF kernel's reconstruction against nmf_plain's on these inputs (relative
     Frobenius error, bound NMF_TOL for bf16, NMF_F32_TOL for float32), beside the
     kernel with one step fewer, which must exceed the bound."""
+    exact_matmul()
     ref = torch.matmul(*nmf_ops.nmf_plain(x, bases, steps, *args)).float()
     rel = lambda y: float(torch.linalg.norm((y.float() - ref).flatten())  # noqa: E731
                           / torch.linalg.norm(ref.flatten()))
@@ -2247,16 +2336,7 @@ def distributed_phase(weights: dict, calib, images: np.ndarray, card: str,
     nmf32 = nmf_check("distributed, rank 0's eval window inputs in this process", x, bases, steps,
                       *args)
     check(nmf32["ok"], f"distributed: the float32 NMF at the eval window's inputs {nmf32}")
-    nbytes, flops = nmf_cost(x, bases, steps)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    nmf32 |= {"ms": cuda_ms(lambda: nmf_ops.nmf(x, bases, steps, *args), reps=3, per_graph=2),
-              "plain_ms": cuda_ms(lambda: nmf_ops.nmf_plain(x, bases, steps, *args), reps=3,
-                                  per_graph=2),
-              "bound_ms": max(t_bytes, t_ops),
-              "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
-    log(f"nmf kernel, float32 instance at the eval window's shape {nmf32['shape']}: "
-        f"{nmf32['ms']:.4f} ms, plain {nmf32['plain_ms']:.4f} ms, bound {nmf32['bound_ms']:.4f} "
-        f"ms ({nmf32['bound_by']}); card {card}")
+    nmf32 |= nmf_f32_times(x, bases, steps, "the eval window's shape", card, *args)
     del x, bases
 
     vfov = np.concatenate([r["shared_lm"]["vfov"] for r in ranks])
@@ -2335,15 +2415,17 @@ def main() -> int:
 
     calib_h = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="bfloat16",
                                           init_mode="heuristic")
+    calib_f = geocalib_tpu_torch.GeoCalib(weights=weights, compute_dtype="float32")
 
-    requests, truths = smoke_requests(calib, calib_h)
+    requests, truths = smoke_requests(calib, calib_h, calib_f)
     images, images_d, images_e = (requests[k][1] for k in "ade")
     truth, truth_d, truth_e = (truths[k] for k in "ade")
     log(f"rendered views (roll, pitch, vfov in degrees): {json.dumps(np.round(truth, 3).tolist())}")
     titles = {"a": "a (16 x 480x640, pinhole, bf16)", "b": "b (1 image, pinhole)",
               "c": "c (1 image, simple_radial, focal prior)",
               "d": "d (8 views of one camera, radial, shared intrinsics)",
-              "e": "e (4 views, simple_divisional, heuristic init)"}
+              "e": "e (4 views, simple_divisional, heuristic init)",
+              "f": "f (16 x 480x640, pinhole, float32)"}
     # warm the card, cuDNN and the bases cache at every request's shapes, outside the counted runs
     for cal, imgs, kw in requests.values():
         cal.calibrate(imgs, **kw)
@@ -2352,8 +2434,9 @@ def main() -> int:
     for name, (cal, imgs, kw) in requests.items():
         outs[name], counts[name] = serve(cal, titles[name], imgs, **kw)
     launches = {"lm_system": sum(c["lm_system"] for c in counts.values()),
-                "nmf": sum(c["nmf"] for c in counts.values())}
-    log(f"launches on the serving paths, a to e: {json.dumps(launches)}")
+                "nmf": sum(c["nmf_by_dtype"]["bfloat16"] for c in counts.values()),
+                "nmf_float32": sum(c["nmf_by_dtype"]["float32"] for c in counts.values())}
+    log(f"launches on the serving paths, a to f: {json.dumps(launches)}")
     out_a, out_c, out_d, out_e = outs["a"], outs["c"], outs["d"], outs["e"]
     check(out_a["up_field"].shape == (16, 480, 640, 2), "request a: up_field shape")
     check(out_a["camera"].data.shape == (16, 8) and out_c["camera"].k.shape == (2,),
@@ -2378,6 +2461,7 @@ def main() -> int:
 
     lm = lm_phase(calib, calib_h, images, images_d, images_e)
     nmf = nmf_phase(calib, images)
+    nmf_f32 = nmf_f32_phase(calib_f, images, card)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for model, n in sorted(lm_ptxas().items()):
         per_sm = resident_blocks(n, lm["threads"])
@@ -2388,10 +2472,11 @@ def main() -> int:
         lm["per_model"][model]["registers"] = n
     nmf_regs = nmf_ptxas()
     for stage, n in nmf_regs.items():
-        log(f"nmf kernel bf16 stage {stage}: {n}")
+        log(f"nmf kernel stage {stage}: {n}")
     if build.build_log["built"]:
-        check(len(nmf_regs) == 6, f"ptxas reported {len(nmf_regs)} of the 6 bf16 NMF stages")
-        check(not any(spills(n) for n in nmf_regs.values()), "a bf16 NMF stage spills")
+        check(len(nmf_regs) == 12, f"ptxas reported {len(nmf_regs)} of the 12 NMF stages")
+        check(not any(spills(n) for n in nmf_regs.values()), "an NMF stage spills")
+    nmf_f32["registers"] = {k: v for k, v in nmf_regs.items() if k.startswith("float32")}
 
     outs_gate = gate_serve(requests)
     with plain_versions():
@@ -2414,7 +2499,7 @@ def main() -> int:
                             + distributed["launches"]["lm_system"])
     for model, entry in lm["per_model"].items():
         entry["launches"] = by_model[model]
-    paths = lambda name: {"serving a-e": launches[name], "eval": evaluation["launches"][name],
+    paths = lambda name: {"serving a-f": launches[name], "eval": evaluation["launches"][name],
                           "train": train["launches"][name], "loop": loop["launches"][name],
                           "generate": generate["launches"][name], "demo": demo["launches"][name],
                           "distributed": distributed["launches"][name]}
@@ -2435,11 +2520,16 @@ def main() -> int:
          "launches_by_path": paths("nmf"), **nmf, "eval_shape": evaluation["at_shape"]["nmf"]},
         {"name": "nmf_float32", "route": "cuda", "source": "geocalib_tpu_torch/csrc/nmf.cu",
          "replaces": "geocalib_tpu/ops/nmf_kernel.py:86", "instance": "float32",
-         "launches": distributed["launches"]["nmf_float32"],
-         "launches_by_path": {"distributed": distributed["launches"]["nmf_float32"]},
-         **{k: distributed["nmf_float32"][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                        "bound_ms", "bound_by", "library_ms",
-                                                        "shape")}},
+         "tensor_cores": "mma.sync m16n8k8 TF32, three products",
+         "launches": launches["nmf_float32"] + distributed["launches"]["nmf_float32"],
+         "launches_by_path": {"serving a-f": launches["nmf_float32"],
+                              "distributed": distributed["launches"]["nmf_float32"]},
+         **{k: nmf_f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "fma_bound_ms", "shape", "rel",
+                                    "tf32_control_rel", "registers")},
+         "eval_window": {k: distributed["nmf_float32"][k] for k in (
+             "shape", "rel", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "fma_bound_ms")}},
     ]
     train_line = {k: train[k] for k in ("ift_step_ms", "unroll_step_ms", "step_ms", "peak_gib",
                                         "lm_kernel_ms_per_step", "device_kernel_ms_per_step",

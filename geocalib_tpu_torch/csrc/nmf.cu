@@ -14,13 +14,13 @@
 // a library; the rank-R reconstruction coef bt is one batched product
 // outside.
 //
-// Design, one launch per stage (float32 kernel / bf16 kernel where they differ):
+// Design, one launch per stage (bf16 kernel / float32 kernel where they differ):
 //   norm   nmf_norm_kernel: column norms of the raw bases -> bt (R, D)
-//   gram   nmf_gram_kernel / nmf_gram_tc_kernel: bt bt^T (R, R)
-//   coef   nmf_coef_kernel / nmf_coef_tc_kernel: tiles of tokens: x bt^T,
+//   gram   nmf_gram_tc_kernel / nmf_gram_tf32_kernel: bt bt^T (R, R)
+//   coef   nmf_coef_tc_kernel / nmf_coef_tf32_kernel: tiles of tokens: x bt^T,
 //          then softmax (init) or the multiplicative coef update with
 //          coef (bt bt^T)
-//   stats  nmf_stats_kernel / nmf_stats_tc_kernel: per-block partials of
+//   stats  nmf_stats_tc_kernel / nmf_stats_tf32_kernel: per-block partials of
 //          coef^T x and coef^T coef over chunks of tokens
 //   bases  nmf_bases_kernel: sums the partials in a fixed chunk order, then
 //          the multiplicative bt update with (coef^T coef) bt
@@ -34,8 +34,8 @@
 // (nmf_gram_tc_kernel, nmf_coef_tc_kernel, nmf_stats_tc_kernel). Every
 // operand is already a bf16 value (gram holds bf16-rounded values), so the
 // tensor cores multiply the same numbers and round at the same places as
-// the FMA loops; only the order of the sums differs. Tiles come in by
-// 16-byte cp.async through a ring of stages, into rows padded by 16 bytes so
+// float32 FMA loops would; only the order of the sums differs. Tiles come in
+// by 16-byte cp.async through a ring of stages, into rows padded by 16 bytes so
 // that ldmatrix hits distinct banks; ragged edges are zero-filled in shared
 // memory, and when D or R is not a multiple of 8 (or a pointer is not
 // 16-byte aligned) the same kernels load element by element. The epilogues
@@ -62,9 +62,39 @@
 // with coef kept in shared memory across the coef and stats halves of a
 // step.
 //
-// float32 instance (not on the serving path, which runs the network in
-// bf16): the five stages on float32 FMA loops. TF32 tensor cores would
-// round the operands to 10 bits of mantissa and change its numbers.
+// float32 instance (GeoCalib(compute_dtype="float32"), float32 evaluation
+// and validation): the same five stages, the same products (and bt bt^T) on
+// the tensor cores, in TF32 by mma.sync.m16n8k8 (nmf_gram_tf32_kernel,
+// nmf_coef_tf32_kernel, nmf_stats_tf32_kernel). One TF32 product would round
+// each operand to 11 significant bits (~3 decimal digits). Instead each
+// float32 operand a is split into hi = tf32(a) and lo = tf32(a - hi) (the
+// subtraction is exact; tf32 rounds to nearest, ties away, as cvt.rna does),
+// and a b is accumulated in float32 as lo_a hi_b, then hi_a lo_b, then
+// hi_a hi_b, the small terms first. Only lo_a lo_b (below 2^-22 of the
+// product) and the bits below lo's 11 are lost: ~21 bits of each product
+// against float32's 24, the size of float32's rounding of sums taken in
+// another order. Each operand is split once where it is read by one warp,
+// and once for all where several read it: x as the coef stage's fragments
+// are loaded; bt and gram by the gram stage, which writes them as (hi, lo)
+// pairs for the coef stage (gram transposed, so that it too is read along
+// rows); each stats stage's x tile once into a pair buffer of the block,
+// since 4 warps read each element; coef as the stats stage's fragments are
+// loaded. ldmatrix moves 16-bit elements, so fragments come from shared memory
+// by 32- and 64-bit loads, with row strides chosen for them: floats read along
+// rows 4 mod 32 banks, down columns 8 mod 32; pairs read along rows or down
+// columns 4 mod 16 (so the 16 lanes of a 64-bit half-warp hit 32 banks). Coef
+// blocks take 128 tokens x 32 columns a stage, stats blocks 32 tokens x 128
+// columns: 2 blocks an SM, without spills. Vector copies need D or R a
+// multiple of 4.
+// What bounds it: at request a's shape, in float32, the products are 313.9
+// GFLOP, taken 3 times in TF32; x is 545.3 MB, and its 16 passes move 8.7 GB
+// (2.60 ms at 3.35 TB/s). On an NVIDIA H100 80GB HBM3 at 700 W, mma.sync
+// issues TF32 at ~320 TFLOP/s, under two thirds of the 495 that wgmma
+// reaches, which puts the products at ~2.9 ms. The stages reach neither
+// floor: their copies, splits, fragment loads from shared memory and
+// products run one after another rather than beside each other (PERF.md
+// gives the card's times; tools/nmf_f32_variants.py times the stages with
+// each part taken out, tools/nmf_stage_times.py the mma.sync rates).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cfloat>
@@ -73,9 +103,8 @@
 
 namespace {
 
-constexpr int kTile = 64;      // tokens (or ranks, or columns) per block tile
-constexpr int kK = 32;         // depth of one shared-memory step
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kTile = 64;      // columns (and ranks) per block tile of the bases stage
+constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each in the bases stage
 constexpr int kPad = kTile + 1;
 
 __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
@@ -115,178 +144,6 @@ __global__ void nmf_norm_kernel(const T* bases, T* bt, int D, int R, float eps) 
   T* dst = bt + (static_cast<size_t>(b) * R + r) * D;
   for (int d = threadIdx.x; d < D; d += kThreads)
     st(dst, d, ld(src, static_cast<size_t>(d) * R + r) / denom);
-}
-
-// gram[b] = round(bt bt^T), (R, R) in float32 holding working-type values.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) nmf_gram_kernel(const T* bt, float* gram, int D, int R) {
-  __shared__ float sm[kTile][kK + 1];
-  const int b = blockIdx.x, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* src = bt + static_cast<size_t>(b) * R * D;
-  float acc[4][4] = {};
-  for (int d0 = 0; d0 < D; d0 += kK) {
-    for (int e = threadIdx.x; e < kTile * kK; e += kThreads) {
-      const int i = e / kK, j = e % kK;
-      sm[i][j] = (i < R && d0 + j < D) ? ld(src, static_cast<size_t>(i) * D + d0 + j) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < kK; ++j) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sm[ty + 16 * i][j], c[i] = sm[tx + 16 * i][j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][k] += a[i] * c[k];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int r = ty + 16 * i, s = tx + 16 * k;
-      if (r < R && s < R) gram[(static_cast<size_t>(b) * R + r) * R + s] = rnd<T>(acc[i][k]);
-    }
-}
-
-// One tile of 64 tokens. INIT: coef = softmax(inv_t * round(x bt^T)).
-// Otherwise: coef <- coef * round(x bt^T) / (round(coef gram) + eps), in place.
-template <typename T, bool INIT>
-__global__ void __launch_bounds__(kThreads)
-nmf_coef_kernel(const T* x, const T* bt, const float* gram, T* coef, int N, int D, int R,
-                float inv_t, float eps) {
-  __shared__ float sm[2][kTile][kPad];
-  const int b = blockIdx.y, n0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* xb = x + static_cast<size_t>(b) * N * D;
-  const T* bb = bt + static_cast<size_t>(b) * R * D;
-  T* cb = coef + static_cast<size_t>(b) * N * R;
-
-  float acc[4][4] = {};
-  for (int d0 = 0; d0 < D; d0 += kK) {
-    for (int e = threadIdx.x; e < kTile * kK; e += kThreads) {
-      const int i = e / kK, j = e % kK, d = d0 + j;
-      sm[0][i][j] = (n0 + i < N && d < D) ? ld(xb, static_cast<size_t>(n0 + i) * D + d) : 0.f;
-      sm[1][i][j] = (i < R && d < D) ? ld(bb, static_cast<size_t>(i) * D + d) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < kK; ++j) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sm[0][ty + 16 * i][j], c[i] = sm[1][tx + 16 * i][j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][k] += a[i] * c[k];
-    }
-    __syncthreads();
-  }
-
-  if (INIT) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) sm[0][ty + 16 * i][tx + 16 * k] = rnd<T>(inv_t * rnd<T>(acc[i][k]));
-    __syncthreads();
-    if (threadIdx.x < kTile && n0 + threadIdx.x < N) {
-      const float* row = sm[0][threadIdx.x];
-      float mx = -FLT_MAX;
-      for (int r = 0; r < R; ++r) mx = fmaxf(mx, row[r]);
-      float sum = 0.f;
-      for (int r = 0; r < R; ++r) sum += expf(row[r] - mx);
-      const size_t o = static_cast<size_t>(n0 + threadIdx.x) * R;
-      for (int r = 0; r < R; ++r) st(cb, o + r, expf(row[r] - mx) / sum);
-    }
-    return;
-  }
-
-  // coef tile and the gram matrix into shared memory
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int i = e / kTile, j = e % kTile;
-    sm[0][i][j] = (n0 + i < N && j < R) ? ld(cb, static_cast<size_t>(n0 + i) * R + j) : 0.f;
-    sm[1][i][j] = (i < R && j < R) ? gram[(static_cast<size_t>(b) * R + i) * R + j] : 0.f;
-  }
-  __syncthreads();
-  float den[4][4] = {};
-  for (int s = 0; s < R; ++s) {
-    float a[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = sm[0][ty + 16 * i][s], c[i] = sm[1][s][tx + 16 * i];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) den[i][k] += a[i] * c[k];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int n = n0 + ty + 16 * i, r = tx + 16 * k;
-      if (n < N && r < R) {
-        const float c = sm[0][ty + 16 * i][r];
-        const float num = rnd<T>(c * rnd<T>(acc[i][k]));
-        st(cb, static_cast<size_t>(n) * R + r, num / rnd<T>(rnd<T>(den[i][k]) + eps));
-      }
-    }
-}
-
-// Partials over one chunk of tokens: coef^T x for a 64-column tile of x
-// (blockIdx.x < column tiles), or coef^T coef (the last blockIdx.x).
-// partial is (B, chunks, R, D + R) float32.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-nmf_stats_kernel(const T* x, const T* coef, float* partial, int N, int D, int R, int chunk) {
-  __shared__ float sm[2][kK][kPad];
-  const int tiles = (D + kTile - 1) / kTile;
-  const bool gram = blockIdx.x == tiles;
-  const int c0 = blockIdx.x * kTile, ch = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* xb = x + static_cast<size_t>(b) * N * D;
-  const T* cb = coef + static_cast<size_t>(b) * N * R;
-  const int nbeg = ch * chunk, nend = min(N, nbeg + chunk);
-  const int ncol = gram ? R : D;
-
-  float acc[4][4] = {};
-  for (int t0 = nbeg; t0 < nend; t0 += kK) {
-    for (int e = threadIdx.x; e < kK * kTile; e += kThreads) {
-      const int k = e / kTile, j = e % kTile, n = t0 + k;
-      const bool ok = n < nend;
-      sm[0][k][j] = (ok && j < R) ? ld(cb, static_cast<size_t>(n) * R + j) : 0.f;
-      float v = 0.f;
-      if (ok) {
-        if (gram)
-          v = j < R ? ld(cb, static_cast<size_t>(n) * R + j) : 0.f;
-        else
-          v = c0 + j < D ? ld(xb, static_cast<size_t>(n) * D + c0 + j) : 0.f;
-      }
-      sm[1][k][j] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kK; ++k) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sm[0][k][ty + 16 * i], c[i] = sm[1][k][tx + 16 * i];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] += a[i] * c[q];
-    }
-    __syncthreads();
-  }
-  const int chunks = gridDim.y;
-  float* out = partial + (static_cast<size_t>(b) * chunks + ch) * R * (D + R);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = ty + 16 * i, col = (gram ? 0 : c0) + tx + 16 * q;
-      if (r < R && col < ncol)
-        out[static_cast<size_t>(r) * (D + R) + (gram ? D : 0) + col] = acc[i][q];
-    }
 }
 
 // bt <- bt * round(coef^T x) / (round(round(coef^T coef) bt) + eps) for one
@@ -417,41 +274,53 @@ __device__ __forceinline__ int a_col(int lane) { return (lane >> 4) << 3; }
 __device__ __forceinline__ int at_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
 __device__ __forceinline__ int at_col(int lane) { return ((lane >> 3) & 1) << 3; }
 
-// ROWS x COLS of a bf16 matrix with row stride `stride` (elements) into
-// shared memory with row stride LD; rows >= nr and columns >= nc are zero.
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16(0.f); }
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ float2 zero<float2>() { return make_float2(0.f, 0.f); }
+
+// ROWS x COLS of a bf16, float32 or (hi, lo) pair matrix with row stride `stride` (elements)
+// into shared memory with row stride LD; rows >= nr and columns >= nc are zero.
 // vec: 16-byte copies are legal (stride and base 16-byte aligned).
-template <int ROWS, int COLS, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int stride, int nr, int nc,
+template <int ROWS, int COLS, int LD, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int stride, int nr, int nc,
                                           bool vec) {
-  constexpr int kVecs = COLS / 8;
+  constexpr int kV = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int kVecs = COLS / kV;
   for (int e = threadIdx.x; e < ROWS * kVecs; e += kThreads) {
-    const int i = e / kVecs, j = (e % kVecs) * 8;
-    bf16* d = dst + i * LD + j;
-    const bf16* g = src + static_cast<size_t>(i) * stride + j;
-    if (vec && i < nr && j + 8 <= nc) {
+    const int i = e / kVecs, j = (e % kVecs) * kV;
+    T* d = dst + i * LD + j;
+    const T* g = src + static_cast<size_t>(i) * stride + j;
+    if (vec && i < nr && j + kV <= nc) {
       cp_async16(d, g);
     } else {
 #pragma unroll
-      for (int q = 0; q < 8; ++q) d[q] = (i < nr && j + q < nc) ? g[q] : __float2bfloat16(0.f);
+      for (int q = 0; q < kV; ++q) d[q] = (i < nr && j + q < nc) ? g[q] : zero<T>();
     }
   }
 }
 
-// rows x kRk bf16 of a shared-memory tile (row stride kLd) -> rows of R values
+// rows x kRk values of a shared-memory tile (row stride LD) -> rows of R values
 // (row stride R) in global memory, the first nr rows; 16-byte stores when vec.
-__device__ __forceinline__ void store_tile(bf16* dst, const bf16* src, int rows, int nr, int R,
+template <int LD = kLd, typename T>
+__device__ __forceinline__ void store_tile(T* dst, const T* src, int rows, int nr, int R,
                                            bool vec) {
+  constexpr int kV = 16 / sizeof(T);
   if (vec) {
-    for (int e = threadIdx.x; e < rows * (kRk / 8); e += kThreads) {
-      const int i = e / (kRk / 8), j = (e % (kRk / 8)) * 8;
+    for (int e = threadIdx.x; e < rows * (kRk / kV); e += kThreads) {
+      const int i = e / (kRk / kV), j = (e % (kRk / kV)) * kV;
       if (i < nr && j < R)
         *reinterpret_cast<uint4*>(dst + static_cast<size_t>(i) * R + j) =
-            *reinterpret_cast<const uint4*>(src + i * kLd + j);
+            *reinterpret_cast<const uint4*>(src + i * LD + j);
     }
   } else {
     for (int e = threadIdx.x; e < rows * kRk; e += kThreads) {
       const int i = e / kRk, j = e % kRk;
-      if (i < nr && j < R) dst[static_cast<size_t>(i) * R + j] = src[i * kLd + j];
+      if (i < nr && j < R) dst[static_cast<size_t>(i) * R + j] = src[i * LD + j];
     }
   }
 }
@@ -747,6 +616,392 @@ nmf_stats_tc_kernel(const bf16* x, const bf16* coef, float* partial, int N, int 
     }
 }
 
+// ---- float32 instance: the same products on TF32 tensor cores, three products each ----
+
+constexpr int kFDK = 32;           // depth (columns of x and bt) per coef pipeline stage
+constexpr int kFLd = kFDK + 4;     // coef block's x tile, floats, read along rows: 4 mod 32 banks
+constexpr int kF2Ld = kFDK + 4;    // coef block's bt tile, (hi, lo) pairs, read along rows: 4 mod 16
+constexpr int kFULd = kRk + 4;     // the update's coef (floats) and gram (pairs) tiles, read along rows
+constexpr int kFTLd = kRk + 8;     // stats block's coef tile, floats, read down columns: 8 mod 32
+constexpr int kFX2Ld = kSCol + 4;  // stats block's x tile as pairs, read down columns: 4 mod 16
+constexpr int kFGDK = 64;          // depth per gram pipeline stage
+constexpr int kFGLd = kFGDK + 4;   // gram block's bt tile, floats, read along rows
+constexpr int kFMT = 1;             // m16 tiles of tokens a coef warp
+constexpr int kFTok = 8 * 16 * kFMT;  // tokens per coef block
+constexpr int kFCoefBlocks = 2;      // coef blocks an SM (3 would cap registers at 80: spills)
+constexpr int kFCoefStages = 2, kFStatsStages = 3, kFGramStages = 2;
+
+constexpr int kFCoefStage = kFTok * kFLd + 2 * kRk * kF2Ld;  // floats: x tile, bt pair tile
+constexpr int kFStatsStage = kSTok * (kFTLd + kSCol);        // floats: coef tile, x tile as read
+constexpr int kFCoefSmem = kFCoefStages * kFCoefStage * 4;                            // 73,728
+constexpr int kFStatsSmem = kFStatsStages * kFStatsStage * 4 + kSTok * kFX2Ld * 8;  // 110,592
+constexpr int kFGramSmem = kFGramStages * kRk * kFGLd * 4;                            // 34,816
+static_assert((kFTok + 2 * kRk) * kFULd * 4 <= kFCoefSmem,
+              "the update's coef and gram tiles fit in the ring");
+static_assert(kFLd % 32 == 4 && kFTLd % 32 == 8 && kFGLd % 32 == 4 && kFULd % 32 == 4 &&
+                  kF2Ld % 16 == 4 && kFX2Ld % 16 == 4,
+              "row strides chosen for conflict-free fragment loads");
+static_assert(kFCoefBlocks * (kFCoefSmem + 1024) <= 233472 && 2 * (kFStatsSmem + 1024) <= 233472,
+              "kFCoefBlocks coef or two stats blocks fit in an SM's shared memory");
+
+// tf32(a): a rounded to 10 mantissa bits, to nearest with ties away from zero,
+// as cvt.rna.tf32.f32 rounds. On sm_90a that instruction compiles to 4 SASS
+// instructions (a guard for NaN and infinity among them); this form is 2 and
+// gives the same bits for every finite a (tools/nmf_f32_variants.py, cvt_rna).
+__device__ __forceinline__ unsigned tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+// a = hi + lo: hi = tf32(a), lo = tf32(a - hi); a - hi is exact in float32.
+__device__ __forceinline__ void split(float a, unsigned& hi, unsigned& lo) {
+  hi = tf32(a);
+  lo = tf32(a - __uint_as_float(hi));
+}
+__device__ __forceinline__ float2 split2(float a) {
+  unsigned hi, lo;
+  split(a, hi, lo);
+  return make_float2(__uint_as_float(hi), __uint_as_float(lo));
+}
+
+// An m16n8k8 operand held as its hi and lo parts: A gives 4 registers, B 2.
+template <int K>
+struct Frag {
+  unsigned hi[K], lo[K];
+};
+// A 16x8 at p, floats stored [m][k] with row stride LD, split as it is loaded.
+// With g = lane / 4, t = lane % 4, a[0..3] hold (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4).
+template <int LD>
+__device__ __forceinline__ Frag<4> frag_a_mk(const float* p, int g, int t) {
+  Frag<4> f;
+  split(p[g * LD + t], f.hi[0], f.lo[0]);
+  split(p[(g + 8) * LD + t], f.hi[1], f.lo[1]);
+  split(p[g * LD + t + 4], f.hi[2], f.lo[2]);
+  split(p[(g + 8) * LD + t + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+// A 16x8 at p, floats stored [k][m]
+template <int LD>
+__device__ __forceinline__ Frag<4> frag_a_km(const float* p, int g, int t) {
+  Frag<4> f;
+  split(p[t * LD + g], f.hi[0], f.lo[0]);
+  split(p[t * LD + g + 8], f.hi[1], f.lo[1]);
+  split(p[(t + 4) * LD + g], f.hi[2], f.lo[2]);
+  split(p[(t + 4) * LD + g + 8], f.hi[3], f.lo[3]);
+  return f;
+}
+// B 8(k)x8(n) at p, floats stored [n][k]: b[0], b[1] hold (k = t, n = g), (t + 4, g)
+template <int LD>
+__device__ __forceinline__ Frag<2> frag_b_nk(const float* p, int g, int t) {
+  Frag<2> f;
+  split(p[g * LD + t], f.hi[0], f.lo[0]);
+  split(p[g * LD + t + 4], f.hi[1], f.lo[1]);
+  return f;
+}
+// B 8(k)x8(n) at p, floats stored [k][n]
+template <int LD>
+__device__ __forceinline__ Frag<2> frag_b_kn(const float* p, int g, int t) {
+  Frag<2> f;
+  split(p[t * LD + g], f.hi[0], f.lo[0]);
+  split(p[(t + 4) * LD + g], f.hi[1], f.lo[1]);
+  return f;
+}
+// B 8(k)x8(n) at p, (hi, lo) pairs already split, stored [n][k] (row stride LD pairs)
+template <int LD>
+__device__ __forceinline__ Frag<2> frag_b_nk2(const float2* p, int g, int t) {
+  const float2 v0 = p[g * LD + t], v1 = p[g * LD + t + 4];
+  return {{__float_as_uint(v0.x), __float_as_uint(v1.x)},
+          {__float_as_uint(v0.y), __float_as_uint(v1.y)}};
+}
+// B 8(k)x8(n) at p, (hi, lo) pairs stored [k][n]
+template <int LD>
+__device__ __forceinline__ Frag<2> frag_b_kn2(const float2* p, int g, int t) {
+  const float2 v0 = p[t * LD + g], v1 = p[(t + 4) * LD + g];
+  return {{__float_as_uint(v0.x), __float_as_uint(v1.x)},
+          {__float_as_uint(v0.y), __float_as_uint(v1.y)}};
+}
+
+// d += a b, a 16x8 (row), b 8x8 (col), TF32 in, float32 accumulators laid out
+// as for mma() above.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a b at float32 accuracy: the three products, the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+__device__ __forceinline__ void st2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
+// gram = bt bt^T, and the operands the coef stage reads from this step's bt,
+// split once here rather than by each coef block: bt2 (R, D) and gram2 (R, R)
+// as (hi, lo) pairs, gram2 transposed (row r holds column r of bt bt^T) so
+// that the coef stage reads it along rows. One block a sample; warp w owns
+// rows 16 (w % 4).. and columns 32 (w / 4).. of bt bt^T.
+__global__ void __launch_bounds__(kThreads)
+nmf_gram_tf32_kernel(const float* bt, float2* bt2, float2* gram2, int D, int R, int vec_x) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* stages = reinterpret_cast<float*>(smem);
+  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 16 * (warp % 4), wc = 32 * (warp / 4);
+  const float* bb = bt + static_cast<size_t>(b) * R * D;
+  float2* b2 = bt2 + static_cast<size_t>(b) * R * D;
+  float acc[4][4] = {};
+  pipeline<kFGramStages>(
+      (D + kFGDK - 1) / kFGDK,
+      [&](int s) {
+        load_tile<kRk, kFGDK, kFGLd>(stages + (s % kFGramStages) * kRk * kFGLd, bb + s * kFGDK,
+                                     D, R, D - s * kFGDK, vec_x);
+      },
+      [&](int s) {
+        const float* ts = stages + (s % kFGramStages) * kRk * kFGLd;
+        for (int e = threadIdx.x; e < kRk * kFGDK; e += kThreads) {
+          const int i = e / kFGDK, j = e % kFGDK, d = s * kFGDK + j;
+          if (i < R && d < D) b2[static_cast<size_t>(i) * D + d] = split2(ts[i * kFGLd + j]);
+        }
+#pragma unroll
+        for (int k = 0; k < kFGDK; k += 8) {
+          const Frag<4> a = frag_a_mk<kFGLd>(ts + wr * kFGLd + k, g, t);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)  // B = bt^T, stored [n][k] as bt's rows
+            mma3(acc[n], a, frag_b_nk<kFGLd>(ts + (wc + 8 * n) * kFGLd + k, g, t));
+        }
+      });
+  float2* g2 = gram2 + static_cast<size_t>(b) * R * R;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // element (row, col) of bt bt^T goes to gram2[col][row]
+      const int row = wr + g + 8 * (e >> 1), col = wc + 8 * n + 2 * t + (e & 1);
+      if (row < R && col < R) g2[col * R + row] = split2(acc[n][e]);
+    }
+}
+
+// One tile of kFTok tokens, warp w owning kFMT m16 tiles of tokens from
+// 16 kFMT w (each bt fragment loaded serves kFMT products) and all 64 ranks.
+// INIT: coef = softmax(inv_t * x bt^T).
+// Otherwise: coef <- coef * (x bt^T) / (coef gram + eps), in place.
+// x comes in as floats and is split as its fragments are loaded (each element
+// is read by one warp); bt as the gram stage's (hi, lo) pairs. After the ring,
+// the update's coef tile and gram pairs take its place; the output tile is
+// written over the coef tile, each warp over its own rows.
+template <bool INIT>
+__global__ void __launch_bounds__(kThreads, kFCoefBlocks)
+nmf_coef_tf32_kernel(const float* x, const float2* bt2, const float2* gram2, float* coef, int N,
+                     int D, int R, float inv_t, float eps, int vec_x, int vec_c) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* stages = reinterpret_cast<float*>(smem);
+
+  const int b = blockIdx.y, n0 = blockIdx.x * kFTok;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int nr = min(kFTok, N - n0);
+  const float* xb = x + (static_cast<size_t>(b) * N + n0) * D;
+  const float2* bb = bt2 + static_cast<size_t>(b) * R * D;
+  float* cb = coef + (static_cast<size_t>(b) * N + n0) * R;
+
+  // m16 tile m, n8 tile n: ranks 8n + 2t, +1 of tokens 16 (kFMT w + m) + g and + 8
+  float acc[kFMT][8][4] = {};
+  pipeline<kFCoefStages>(
+      (D + kFDK - 1) / kFDK,
+      [&](int s) {
+        float* xs = stages + (s % kFCoefStages) * kFCoefStage;
+        const int d0 = s * kFDK;
+        load_tile<kFTok, kFDK, kFLd>(xs, xb + d0, D, nr, D - d0, vec_x);
+        load_tile<kRk, kFDK, kF2Ld>(reinterpret_cast<float2*>(xs + kFTok * kFLd), bb + d0, D, R,
+                                    D - d0, vec_x);
+      },
+      [&](int s) {
+        const float* xs = stages + (s % kFCoefStages) * kFCoefStage + warp * 16 * kFMT * kFLd;
+        const float2* bs = reinterpret_cast<const float2*>(
+            stages + (s % kFCoefStages) * kFCoefStage + kFTok * kFLd);
+#pragma unroll
+        for (int k = 0; k < kFDK; k += 8) {
+          Frag<4> a[kFMT];
+#pragma unroll
+          for (int m = 0; m < kFMT; ++m) a[m] = frag_a_mk<kFLd>(xs + 16 * m * kFLd + k, g, t);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {  // B = bt^T, stored [n][k] as bt's rows
+            const Frag<2> bq = frag_b_nk2<kF2Ld>(bs + 8 * n * kF2Ld + k, g, t);
+#pragma unroll
+            for (int m = 0; m < kFMT; ++m) mma3(acc[m][n], a[m], bq);
+          }
+        }
+      });
+
+  float* ct = stages;                                              // coef tile [token][s]
+  float2* gt = reinterpret_cast<float2*>(stages + kFTok * kFULd);  // gram pairs [r][s]
+  float* rows = ct + warp * 16 * kFMT * kFULd;  // this warp's rows of the coef and output tiles
+  if (INIT) {
+    // softmax over the R ranks of rows g and g + 8 of each m16 tile, whose
+    // values sit in the four lanes of a group: the max and the sum end in two shuffles
+#pragma unroll
+    for (int m = 0; m < kFMT; ++m) {
+      float mx[2] = {-FLT_MAX, -FLT_MAX}, sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[m][n][e] *= inv_t;
+          if (8 * n + 2 * t + (e & 1) < R) mx[e >> 1] = fmaxf(mx[e >> 1], acc[m][n][e]);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        for (int off = 1; off < 4; off *= 2)
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], off));
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[m][n][e] = 8 * n + 2 * t + (e & 1) < R ? expf(acc[m][n][e] - mx[e >> 1]) : 0.f;
+          sum[e >> 1] += acc[m][n][e];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        for (int off = 1; off < 4; off *= 2) sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], off);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] /= sum[e >> 1];
+    }
+  } else {
+    load_tile<kFTok, kRk, kFULd>(ct, cb, R, nr, R, vec_c);
+    load_tile<kRk, kRk, kFULd>(gt, gram2 + static_cast<size_t>(b) * R * R, R, R, R, vec_c);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // denominator coef gram on the tensor cores, 16 tokens and 16 ranks at a time
+#pragma unroll
+    for (int m = 0; m < kFMT; ++m) {
+      const float* crow = rows + 16 * m * kFULd;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float den[2][4] = {};
+        for (int k = 0; k < R; k += 8) {
+          const Frag<4> a = frag_a_mk<kFULd>(crow + k, g, t);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            mma3(den[i], a, frag_b_nk2<kFULd>(gt + (16 * j + 8 * i) * kFULd + k, g, t));
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int n = 2 * j + i;
+            const float2 c2 =
+                *reinterpret_cast<const float2*>(crow + (g + 8 * h) * kFULd + 8 * n + 2 * t);
+            acc[m][n][2 * h] = c2.x * acc[m][n][2 * h] / (den[i][2 * h] + eps);
+            acc[m][n][2 * h + 1] = c2.y * acc[m][n][2 * h + 1] / (den[i][2 * h + 1] + eps);
+          }
+      }
+    }
+    __syncwarp();  // the warp's reads of its coef rows end before they are overwritten
+  }
+#pragma unroll
+  for (int m = 0; m < kFMT; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      st2(rows + (16 * m + g) * kFULd + 8 * n + 2 * t, acc[m][n][0], acc[m][n][1]);
+      st2(rows + (16 * m + g + 8) * kFULd + 8 * n + 2 * t, acc[m][n][2], acc[m][n][3]);
+    }
+  __syncthreads();
+  store_tile<kFULd>(cb, ct, kFTok, nr, R, vec_c);
+}
+
+// Partials over one chunk of tokens for kSCol columns of x, laid out and shared
+// among the warps and blocks as in nmf_stats_tc_kernel: coef^T x, and the
+// block's share of the 16-column groups of coef^T coef. Each x element is read
+// by 4 warps, so each stage's x tile is split once into (hi, lo) pairs in a
+// buffer of its own before the products; coef is split as it is loaded.
+__global__ void __launch_bounds__(kThreads, 2)
+nmf_stats_tf32_kernel(const float* x, const float* coef, float* partial, int N, int D, int R,
+                      int chunk, int vec_x, int vec_c) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* stages = reinterpret_cast<float*>(smem);
+  float2* x2 = reinterpret_cast<float2*>(stages + kFStatsStages * kFStatsStage);
+  const int tiles = gridDim.x;
+  const int c0 = blockIdx.x * kSCol, ch = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int wr = 16 * (warp % 4), wc = 64 * (warp / 4);
+  const int gs[2] = {static_cast<int>(blockIdx.x) + tiles * (warp / 4),
+                     static_cast<int>(blockIdx.x) + tiles * (warp / 4 + 2)};
+  const float* xb = x + static_cast<size_t>(b) * N * D;
+  const float* cb = coef + static_cast<size_t>(b) * N * R;
+  const int nbeg = ch * chunk, nend = min(N, nbeg + chunk);
+
+  float acc[8][4] = {}, accg[2][2][4] = {};
+  pipeline<kFStatsStages>(
+      (nend - nbeg + kSTok - 1) / kSTok,
+      [&](int s) {
+        float* cs = stages + (s % kFStatsStages) * kFStatsStage;
+        const int t0 = nbeg + s * kSTok;
+        load_tile<kSTok, kRk, kFTLd>(cs, cb + static_cast<size_t>(t0) * R, R, nend - t0, R,
+                                     vec_c);
+        load_tile<kSTok, kSCol, kSCol>(cs + kSTok * kFTLd, xb + static_cast<size_t>(t0) * D + c0,
+                                       D, nend - t0, D - c0, vec_x);
+      },
+      [&](int s) {
+        const float* cs = stages + (s % kFStatsStages) * kFStatsStage;
+        const float* xs = cs + kSTok * kFTLd;
+        for (int e = threadIdx.x; e < kSTok * kSCol / 4; e += kThreads) {
+          const int k = e / (kSCol / 4), n = (e % (kSCol / 4)) * 4;
+          const float4 v = *reinterpret_cast<const float4*>(xs + k * kSCol + n);
+          const float2 p0 = split2(v.x), p1 = split2(v.y), p2 = split2(v.z), p3 = split2(v.w);
+          float4* d = reinterpret_cast<float4*>(x2 + k * kFX2Ld + n);
+          d[0] = make_float4(p0.x, p0.y, p1.x, p1.y);
+          d[1] = make_float4(p2.x, p2.y, p3.x, p3.y);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < kSTok; k += 8) {
+          const Frag<4> a = frag_a_km<kFTLd>(cs + k * kFTLd + wr, g, t);  // coef^T, stored [k][m]
+#pragma unroll
+          for (int n = 0; n < 8; ++n)  // x stored [k][n]
+            mma3(acc[n], a, frag_b_kn2<kFX2Ld>(x2 + k * kFX2Ld + wc + 8 * n, g, t));
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (gs[i] < kRk / 16) {  // coef stored [k][n]
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+                mma3(accg[i][q], a, frag_b_kn<kFTLd>(cs + k * kFTLd + 16 * gs[i] + 8 * q, g, t));
+            }
+        }
+      });
+
+  float* out = partial + (static_cast<size_t>(b) * gridDim.y + ch) * R * (D + R);
+  const bool pairs = (D + R) % 2 == 0;
+  auto put = [&](int col, int ncol, const float (&d)[4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wr + g + 8 * h;
+      if (row >= R) continue;
+      float* o = out + static_cast<size_t>(row) * (D + R) + col;
+      if (pairs && col % 2 == 0 && col + 1 < ncol) {
+        *reinterpret_cast<float2*>(o) = make_float2(d[2 * h], d[2 * h + 1]);
+      } else {
+        if (col < ncol) o[0] = d[2 * h];
+        if (col + 1 < ncol) o[1] = d[2 * h + 1];
+      }
+    }
+  };
+#pragma unroll
+  for (int n = 0; n < 8; ++n) put(c0 + wc + 8 * n + 2 * t, D, acc[n]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (gs[i] < kRk / 16) {
+      put(D + 16 * gs[i] + 2 * t, D + R, accg[i][0]);
+      put(D + 16 * gs[i] + 8 + 2 * t, D + R, accg[i][1]);
+    }
+}
+
 // Lets the tensor-core stages use more than 48 KB of shared memory; once per process.
 int tc_smem_attributes() {
   static const int code = [] {
@@ -756,6 +1011,12 @@ int tc_smem_attributes() {
                          kCoefSmem);
     cudaFuncSetAttribute(nmf_stats_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kStatsSmem);
+    cudaFuncSetAttribute(nmf_coef_tf32_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kFCoefSmem);
+    cudaFuncSetAttribute(nmf_coef_tf32_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kFCoefSmem);
+    cudaFuncSetAttribute(nmf_stats_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kFStatsSmem);
     return static_cast<int>(cudaGetLastError());
   }();
   return code;
@@ -770,50 +1031,59 @@ int run(const void* xv, const void* basesv, void* coefv, void* btv, float* gram,
   const T* x = static_cast<const T*>(xv);
   T* coef = static_cast<T*>(coefv);
   T* bt = static_cast<T*>(btv);
-  const int dtiles = (D + kTile - 1) / kTile;
-  const int chunks = (N + chunk - 1) / chunk;
-  constexpr bool tc = std::is_same<T, bf16>::value;
-  int ntiles = (N + kTile - 1) / kTile, stiles = dtiles, vec_x = 0, vec_c = 0;
-  if (tc) {
-    const int code = tc_smem_attributes();
-    if (code != 0) return code;
-    ntiles = (N + kTok - 1) / kTok;
-    stiles = (D + kSCol - 1) / kSCol;
-    vec_x = D % 8 == 0 && aligned16(x) && aligned16(bt);
-    vec_c = R % 8 == 0 && aligned16(coef) && aligned16(gram);
-  }
-  // the bf16 instance keeps gram as bf16 (B, R, R) in the float32 scratch
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr int kV = 16 / sizeof(T);  // elements per 16-byte copy
+  int code = tc_smem_attributes();
+  if (code != 0) return code;
+  constexpr int kTokens = kBf16 ? kTok : kFTok;  // tokens per coef block
+  const int ntiles = (N + kTokens - 1) / kTokens, stiles = (D + kSCol - 1) / kSCol;
+  const int dtiles = (D + kTile - 1) / kTile, chunks = (N + chunk - 1) / chunk;
+  // the bf16 instance keeps gram as bf16 (B, R, R) in the scratch; the float32
+  // instance keeps bt and gram there as (hi, lo) pairs, (B, R, D) then (B, R, R)
   auto gram_tc = reinterpret_cast<bf16*>(gram);
+  auto bt2 = reinterpret_cast<float2*>(gram);
+  auto gram2 = bt2 + static_cast<size_t>(B) * R * D;
+  const int vec_x = D % kV == 0 && aligned16(x) && aligned16(bt) && (kBf16 || aligned16(bt2));
+  const int vec_c = R % kV == 0 && aligned16(coef) &&
+                    aligned16(kBf16 ? static_cast<const void*>(gram) : gram2);
   // one stage after another, each launch checked before the next
-  int code = 0;
   auto failed = [&] { return (code = static_cast<int>(cudaGetLastError())) != 0; };
+  auto gram_stage = [&] {
+    if constexpr (kBf16)
+      nmf_gram_tc_kernel<<<B, kThreads, kGramSmem, s>>>(bt, gram_tc, D, R, vec_x, vec_c);
+    else
+      nmf_gram_tf32_kernel<<<B, kThreads, kFGramSmem, s>>>(bt, bt2, gram2, D, R, vec_x);
+  };
   auto coef_stage = [&](auto init) {
     constexpr bool kInit = decltype(init)::value;
-    if constexpr (tc)
+    if constexpr (kBf16)
       nmf_coef_tc_kernel<kInit><<<dim3(ntiles, B), kThreads, kCoefSmem, s>>>(
           x, bt, gram_tc, coef, N, D, R, inv_t, eps, vec_x, vec_c);
     else
-      nmf_coef_kernel<T, kInit><<<dim3(ntiles, B), kThreads, 0, s>>>(x, bt, gram, coef, N, D, R,
-                                                                     inv_t, eps);
+      nmf_coef_tf32_kernel<kInit><<<dim3(ntiles, B), kThreads, kFCoefSmem, s>>>(
+          x, bt2, gram2, coef, N, D, R, inv_t, eps, vec_x, vec_c);
   };
   nmf_norm_kernel<T><<<dim3(R, B), kThreads, 0, s>>>(static_cast<const T*>(basesv), bt, D, R, eps);
   if (failed()) return code;
+  if (!kBf16) {  // the float32 init reads bt as the gram stage's pairs
+    gram_stage();
+    if (failed()) return code;
+  }
   coef_stage(std::true_type{});
   if (failed()) return code;
   for (int it = 0; it <= steps; ++it) {
-    if constexpr (tc)
-      nmf_gram_tc_kernel<<<B, kThreads, kGramSmem, s>>>(bt, gram_tc, D, R, vec_x, vec_c);
-    else
-      nmf_gram_kernel<T><<<B, kThreads, 0, s>>>(bt, gram, D, R);
-    if (failed()) return code;
+    if (kBf16 || it > 0) {  // bt has not changed since the float32 init's gram stage
+      gram_stage();
+      if (failed()) return code;
+    }
     coef_stage(std::false_type{});
     if (failed() || it == steps) return code;  // it == steps: the final coef refresh
-    if constexpr (tc)
+    if constexpr (kBf16)
       nmf_stats_tc_kernel<<<dim3(stiles, chunks, B), kThreads, kStatsSmem, s>>>(
           x, coef, partial, N, D, R, chunk, vec_x, vec_c);
     else
-      nmf_stats_kernel<T><<<dim3(stiles + 1, chunks, B), kThreads, 0, s>>>(x, coef, partial, N, D,
-                                                                          R, chunk);
+      nmf_stats_tf32_kernel<<<dim3(stiles, chunks, B), kThreads, kFStatsSmem, s>>>(
+          x, coef, partial, N, D, R, chunk, vec_x, vec_c);
     if (failed()) return code;
     nmf_bases_kernel<T><<<dim3(dtiles, B), kThreads, 0, s>>>(partial, bt, chunks, D, R, eps);
     if (failed()) return code;
@@ -824,8 +1094,9 @@ int run(const void* xv, const void* basesv, void* coefv, void* btv, float* gram,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. x (B, N, D), bases (B, D, R) raw; outputs
-// coef (B, N, R) and bt (B, R, D) in the same type. Scratch: gram (B, R, R)
-// float32 (the bf16 instance keeps bf16 values in its first half) and
+// coef (B, N, R) and bt (B, R, D) in the same type. Scratch: gram, B R R
+// floats for bf16 (bf16 values in its first half), 2 B R (D + R) floats for
+// float32 (bt and (bt bt^T)^T as (hi, lo) pairs), and
 // partial (B, ceil(N / chunk), R, D + R) float32. R <= 64.
 extern "C" int gc_nmf(int dtype, const void* x, const void* bases, void* coef, void* bt,
                       float* gram, float* partial, int B, int N, int D, int R, int steps,

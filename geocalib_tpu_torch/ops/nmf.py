@@ -6,6 +6,17 @@ same math in plain PyTorch, for CPU tensors. Both return (coef, bt); the
 rank-R reconstruction is one batched product (``nmf_reconstruct``). The
 kernels have no backward, so on CUDA tensors ``nmf`` refuses inputs that
 require grad while grad is enabled.
+
+Two instances, chosen by x's dtype. bf16 (the serving path) runs its products
+on bf16 tensor cores (``mma.sync`` m16n8k16) and is bound by the staged
+design's 16 reads of x a call. float32 (``GeoCalib(compute_dtype="float32")``,
+float32 evaluation and validation) runs the same products on TF32 tensor
+cores (``mma.sync`` m16n8k8) at float32 accuracy: each operand a is split
+into hi = tf32(a) and lo = tf32(a - hi), and a b is taken as lo_a hi_b +
+hi_a lo_b + hi_a hi_b in float32, which keeps ~21 bits of each product (one
+TF32 product keeps 11). Its products, three times the operations, and its
+stages' copies, splits and barriers bound it more than its bytes do
+(csrc/nmf.cu's header; the card's times are in PERF.md).
 """
 
 import math
@@ -92,7 +103,9 @@ def nmf(x: Tensor, bases: Tensor, steps: int = 7, inv_t: float = 1.0,
     chunks = math.ceil(N / TOKENS_PER_CHUNK)
     coef = torch.empty((B, N, R), dtype=x.dtype, device=x.device)
     bt = torch.empty((B, R, D), dtype=x.dtype, device=x.device)
-    gram = torch.empty((B, R, R), dtype=torch.float32, device=x.device)
+    # the float32 instance keeps bt and bt bt^T there, split into (hi, lo) pairs
+    gram = torch.empty(B * R * (R if x.dtype == torch.bfloat16 else 2 * (D + R)),
+                       dtype=torch.float32, device=x.device)
     partial = torch.empty((B, chunks, R, D + R), dtype=torch.float32, device=x.device)
     code = build.lib().gc_nmf(
         DTYPE_IDS[x.dtype], x.data_ptr(), bases.data_ptr(), coef.data_ptr(), bt.data_ptr(),

@@ -232,18 +232,34 @@ def test_nmf_kernel_matches_plain(card, dtype, bound, shape):
     assert _rel(nmf_reconstruct(x, bases, 0), torch.matmul(*nmf_plain(x, bases, 0))) < bound
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 2500, 200, 48),  # ragged N and D, R below 64
                                    (32, 1000, 512, 64),  # more blocks than the card holds at once
                                    (2, 300, 121, 15)])  # D, R odd: element loads, odd columns
-def test_nmf_kernel_is_deterministic(card, shape):
+def test_nmf_kernel_is_deterministic(card, shape, dtype):
     """No atomics and no block reads what another writes: two launches give the same bits."""
     rng = np.random.default_rng(5)
     B, N, D, R = shape
-    x = torch.from_numpy(np.maximum(rng.normal(size=(B, N, D)), 0)).to(card, torch.bfloat16)
-    bases = torch.from_numpy(rng.uniform(size=(B, D, R))).to(card, torch.bfloat16)
+    x = torch.from_numpy(np.maximum(rng.normal(size=(B, N, D)), 0)).to(card, dtype)
+    bases = torch.from_numpy(rng.uniform(size=(B, D, R))).to(card, dtype)
     first = nmf(x, bases, 7)
     for a, b in zip(first, nmf(x, bases, 7)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 2500, 512, 64), (3, 300, 121, 15)])
+def test_nmf_kernel_is_batch_invariant(card, shape, dtype):
+    """Each sample's NMF is its own: the NMF of B samples in one call equals, bit for
+    bit, each sample's NMF run alone."""
+    rng = np.random.default_rng(8)
+    B, N, D, R = shape
+    x = torch.from_numpy(np.maximum(rng.normal(size=(B, N, D)), 0)).to(card, dtype)
+    bases = torch.from_numpy(rng.uniform(size=(B, D, R))).to(card, dtype)
+    coef, bt = nmf(x, bases, 7)
+    for i in range(B):
+        one_coef, one_bt = nmf(x[i:i + 1], bases[i:i + 1], 7)
+        assert torch.equal(coef[i:i + 1], one_coef) and torch.equal(bt[i:i + 1], one_bt)
 
 
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
