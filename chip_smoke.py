@@ -3,7 +3,8 @@
 
 Builds the CUDA kernels from geocalib_tpu_torch/csrc, serves six
 GeoCalib.calibrate requests at MSCAN-B width on the committed weights
-(weights/geocalib_synth_r05.msgpack), one for each path:
+(weights/geocalib_synth_r05.msgpack; the baselines phase also reads
+weights/deepcalib_deepcalib_r04.msgpack), one for each path:
 
   a  16 views at 480x640, pinhole
   b  one view, pinhole
@@ -116,6 +117,29 @@ set to 0 around it); frames finite and of the crop's shape, undistort_image
 and the overlays by the card against the same camera and gravity on the CPU,
 and milliseconds per frame.
 
+Then the baselines phase (optim/ransac.py, optim/gradient.py, the DeepCalib
+network, eval/baselines_cli.py and training/train_deepcalib.py), a path of its
+own: one calibrate of request a's views (1 NMF and 31 LM launches, counted)
+gives the fields on which run_ransac (the default RansacConfig: 2,000
+hypotheses, chunks of 100, stride 4, with the confidences) and
+run_gradient_descent (100 Adam steps) run on the card and again on the CPU
+from the same fields: RANSAC's samples bit for bit, each hypothesis within
+1e-5 relative unless its minimal sample is ill-conditioned (one-ulp
+perturbations of the fields move it further), at most 1% apart, and the card's
+winner, scored on the CPU, within one pixel weight of the CPU winner's score;
+Adam's final roll, pitch and vFoV within GD_TOL; each solver's errors against
+the rendered truth and the LM's estimate logged. DeepCalib on the committed
+weights/deepcalib_deepcalib_r04.msgpack: 16 rendered 320x320 views at batch 8,
+its float32 logits (TF32 off) within 1e-3 of the port's on the CPU on the same
+bf16-rounded inputs, no bin apart off a tie; the deepcalib and trivial methods
+through evaluate_baseline, fed from memory. Then train_deepcalib.training at
+its default conf (batch 32, 320x320, the "deepcalib" augmentation) from the r04
+weights on 64 staged rendered views, 6 steps, then 2 after a restore: the
+restored state bit for bit the saved one, the export read back equal to the
+final state with its conf, every loss finite. Times (CUDA events) and peak
+memory are printed with the card. UVP is host-only (numpy and OpenCV by
+design; the card's machine has no cv2): the phase says so and does not run it.
+
 Last, the distributed phase (parallel/mesh.py), a path of its own: 2 IFT steps
 of the train phase's setup with a float32 network, without a process group
 and with an NCCL group of one rank in this process, bit for bit equal; then
@@ -175,18 +199,21 @@ import geocalib_tpu_torch
 from geocalib_tpu_torch.data import generate as gen_lib, pano as pano_lib
 from geocalib_tpu_torch.data.dataset import synthesize_gt_fields
 from geocalib_tpu_torch.demo import demo as demo_lib, overlays as overlays_lib
+from geocalib_tpu_torch.eval import baselines_cli as baselines_lib
 from geocalib_tpu_torch.eval import pipeline as eval_lib
 from geocalib_tpu_torch.geometry import planar_fields as pf
 from geocalib_tpu_torch.parallel import mesh as pmesh
 from geocalib_tpu_torch.training import device_store as store_lib
 from geocalib_tpu_torch.training import export as loop_export
 from geocalib_tpu_torch.training import train as loop_lib
+from geocalib_tpu_torch.training import train_deepcalib as deepcalib_train
 from geocalib_tpu_torch.training import train_step as train_lib
 from geocalib_tpu_torch.utils import config as loop_config
 from geocalib_tpu_torch.models import hamburger, modules as modules_lib
-from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
+from geocalib_tpu_torch.models.weights import (deepcalib_params_to_jax, params_from_jax,
+                                               read_flax_msgpack)
 from geocalib_tpu_torch.ops import build, lm_system as lm_ops, nmf as nmf_ops
-from geocalib_tpu_torch.optim import lm as lm_solver
+from geocalib_tpu_torch.optim import gradient as gd_lib, lm as lm_solver, ransac as ransac_lib
 from geocalib_tpu_torch.geometry.camera import Camera
 from geocalib_tpu_torch.geometry.gravity import Gravity
 from geocalib_tpu_torch.optim.lm import (LMConfig, flatten_observations, get_heuristic_estimation,
@@ -273,6 +300,24 @@ GENERATE_POOL_PANOS, GENERATE_POOL_WORKERS = 4, 2  # generate_dataset's train sp
 GENERATE_ANGLE_TOL = 5.0
 DEMO_MODELS, DEMO_FRAMES, DEMO_PIXEL_SHARE = ("pinhole", "simple_radial",
                                               "simple_divisional"), 4, 1e-3
+# The baselines phase (the port's optim/ransac.py, optim/gradient.py, models/deepcalib.py,
+# eval/baselines_cli.py, training/train_deepcalib.py): the committed DeepCalib weights,
+# its rendered views (inference at BASELINE_BATCH, the trainer's staged rows), the
+# trainer's steps before and after a restore, and the bounds (see baselines_phase).
+DEEPCALIB_WEIGHTS = ROOT / "weights" / "deepcalib_deepcalib_r04.msgpack"
+BASELINE_VIEWS, BASELINE_SIZE, BASELINE_BATCH = 16, 320, 8
+DEEPCALIB_TRAIN_VIEWS = {"train.csv": 64, "val.csv": 16}
+DEEPCALIB_STEPS, DEEPCALIB_RESTORED_STEPS = 6, 2
+# card against CPU: float32 logits (TF32 off on the card), and the top-two margin under
+# which a head's bin may go either way
+DEEPCALIB_LOGIT_TOL, DEEPCALIB_TIE = 1e-3, 1e-3
+# card against CPU: each hypothesis within 1e-5 relative unless its minimal sample is
+# ill-conditioned (one-ulp perturbations of the fields move it by more than 1e-5
+# relative), and at most RANSAC_ILL_SHARE of them apart (tests/test_torch_baselines.py)
+RANSAC_HYP_TOL, RANSAC_SPREAD_DRAWS, RANSAC_ILL_SHARE = 1e-5, 8, 0.01
+# radians, Adam's final roll, pitch and vFoV, card against CPU (argued in PERF.md §6)
+GD_TOL = 1e-4
+
 # The distributed phase: the ranks spawned on the one card (gloo), how long a rank may
 # run, the steps of the NCCL one-rank check, the staged rows split over the ranks, the
 # shared LM's vFoV bound over the ranks against one process (radians, as the JAX
@@ -1862,6 +1907,316 @@ def demo_phase(calib, crops: torch.Tensor, card: str) -> dict:
             "overlay_pixel_share": pixel_share}
 
 
+# ---------------------------------------------------------------- baselines phase
+
+def cpu_copy(data: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in data.items()}
+
+
+def ulp_spread(data_cpu: dict, xs: torch.Tensor, ys: torch.Tensor, rpf: torch.Tensor
+               ) -> torch.Tensor:
+    """The largest change in the CPU's hypotheses when every field value moves by one
+    float32 ulp in a random direction, over RANSAC_SPREAD_DRAWS draws: each minimal
+    sample's float32 conditioning."""
+    spread = torch.zeros_like(rpf)
+    for seed in range(RANSAC_SPREAD_DRAWS):
+        gen = torch.Generator().manual_seed(100 + seed)
+        moved = {k: torch.nextafter(v, torch.where(torch.rand(v.shape, generator=gen) < 0.5,
+                                                   -math.inf, math.inf))
+                 for k, v in data_cpu.items()}
+        spread = torch.maximum(spread, (ransac_lib.hypotheses(moved, xs, ys) - rpf).abs())
+    return spread
+
+
+def solver_errors(label: str, gravity, camera, truth: np.ndarray, lm_out: dict) -> dict:
+    """Median |roll|, |pitch|, |vFoV| errors in degrees against the rendered truth (roll as
+    Gravity.roll reads it) and against the LM's estimate; logged, not judged."""
+    got = np.stack([np.degrees(t.cpu().numpy()) for t in (gravity.roll, gravity.pitch,
+                                                          camera.vfov)], -1)
+    rad = np.radians(truth)
+    ref = np.stack([np.degrees(read_roll(rad[:, 0], rad[:, 1])), truth[:, 1], truth[:, 2]], -1)
+    lm = np.stack([np.degrees(t.cpu().numpy()) for t in (lm_out["gravity"].roll,
+                                                         lm_out["gravity"].pitch,
+                                                         lm_out["camera"].vfov)], -1)
+    out = {"median_err_vs_truth_deg": np.median(np.abs(got - ref), 0).tolist(),
+           "median_err_vs_lm_deg": np.median(np.abs(got - lm), 0).tolist()}
+    log(f"baselines {label}: median roll/pitch/vfov error against the rendered views "
+        f"{np.round(out['median_err_vs_truth_deg'], 4).tolist()} deg, against the LM's estimate "
+        f"{np.round(out['median_err_vs_lm_deg'], 4).tolist()} deg")
+    return out
+
+
+def ransac_check(data: dict, data_cpu: dict, card: str) -> dict:
+    """RANSAC at the default RansacConfig on the card's fields, timed, and held to the same
+    function on the CPU: samples bit for bit, hypotheses by RANSAC_HYP_TOL or their
+    one-ulp spread, and the card's winner scored by the CPU within the largest single
+    pixel weight (up plus latitude confidence) of the CPU winner's score."""
+    cfg = ransac_lib.RansacConfig()
+    B, h, w = data["up_field"].shape[:3]
+    key = (0, 0)  # jax.random.PRNGKey(0), run_ransac's default
+    run = lambda: ransac_lib.run_ransac(data, cfg, key)
+    run()  # warm
+    res, ms = timed(run)
+    t0 = time.perf_counter()
+    ref = ransac_lib.run_ransac(data_cpu, cfg, key)
+    cpu_s = time.perf_counter() - t0
+
+    xs, ys = ransac_lib.sample_pixels(B, cfg.n_iter, h, w, key, "cuda")
+    xs_c, ys_c = ransac_lib.sample_pixels(B, cfg.n_iter, h, w, key, "cpu")
+    same_samples = bool(torch.equal(xs.cpu(), xs_c) and torch.equal(ys.cpu(), ys_c))
+    hyp = ransac_lib.hypotheses(data, xs, ys).cpu()
+    hyp_c = ransac_lib.hypotheses(data_cpu, xs_c, ys_c)
+    dev = (hyp - hyp_c).abs()
+    apart = dev > RANSAC_HYP_TOL * hyp_c.abs()
+    ill = ulp_spread(data_cpu, xs_c, ys_c, hyp_c) > RANSAC_HYP_TOL * hyp_c.abs()
+    over_rel = float(apart.float().mean())
+    hyp_ok = bool((ill | ~apart).all()) and over_rel <= RANSAC_ILL_SHARE
+
+    planes = ransac_lib.observation_planes(data_cpu, cfg)
+    card_by_cpu = ransac_lib._score_chunk(res.rpf.cpu()[:, None], *planes, h, w,
+                                          cfg.scoring_stride, cfg)[:, 0]
+    weight = float((planes[3] + planes[4]).max())
+    gap = float((ref.score - card_by_cpu).abs().max())
+    log(f"baselines RANSAC: {B} lanes of {h}x{w}, {2 * cfg.n_iter} hypotheses in chunks of "
+        f"{cfg.chunk}, stride {cfg.scoring_stride} ({(h // cfg.scoring_stride) * (w // cfg.scoring_stride)} "
+        f"pixels a lane), with confidences: {ms:.3f} ms a batch of {B} on the card (CPU "
+        f"{cpu_s:.2f} s); samples bit for bit {same_samples}; hypotheses: largest deviation "
+        f"{float(dev.max()):.3e}, {int(apart.sum())} ({over_rel:.4%}) over {RANSAC_HYP_TOL} "
+        f"relative, of them ill-conditioned {int((apart & ill).sum())} (one-ulp spread over "
+        f"{RANSAC_HYP_TOL}; {float(ill.float().mean()):.2%} of all are), verdict {hyp_ok}; "
+        f"card winner scored on the CPU against the CPU winner: largest gap {gap:.4f} (bound: "
+        f"the largest pixel weight {weight:.4f}); scores card {res.score.cpu().numpy().round(2).tolist()}"
+        f" CPU {ref.score.numpy().round(2).tolist()}; card {card}")
+    check(same_samples, "RANSAC: the card's samples differ from the CPU's")
+    check(hyp_ok, "RANSAC: a well-conditioned card hypothesis is off the CPU's, or too many are")
+    check(gap <= weight, f"RANSAC: the card's winner scores {gap} below the CPU winner")
+    return {"ms": ms, "cpu_s": cpu_s, "hyp_max_dev": float(dev.max()), "hyp_over_rel": over_rel,
+            "hyp_apart": int(apart.sum()), "hyp_apart_ill": int((apart & ill).sum()),
+            "winner_gap": gap, "pixel_weight": weight, "result": res}
+
+
+def gd_check(data: dict, data_cpu: dict, card: str) -> dict:
+    """Adam at the default GDConfig on the card's fields, timed, against the CPU: final
+    roll, pitch and vFoV within GD_TOL."""
+    cfg = gd_lib.GDConfig()
+    run = lambda: gd_lib.run_gradient_descent(data, cfg)
+    run()  # warm
+    res, ms = timed(run)
+    t0 = time.perf_counter()
+    ref = gd_lib.run_gradient_descent(data_cpu, cfg)
+    cpu_s = time.perf_counter() - t0
+    params = lambda r: torch.stack([r.gravity.roll, r.gravity.pitch, r.camera.vfov], -1).cpu()
+    dev = (params(res) - params(ref)).abs().max(0).values
+    log(f"baselines Adam: {cfg.num_steps} steps over {tuple(data['up_field'].shape[:3])}: {ms:.3f} "
+        f"ms on the card (CPU {cpu_s:.2f} s); final roll/pitch/vfov card against "
+        f"CPU {dev.numpy().tolist()} rad (bound {GD_TOL}); final cost card "
+        f"{res.costs[-1].cpu().numpy().tolist()}; card {card}")
+    check(bool((dev <= GD_TOL).all()), f"Adam: the card's estimate is {dev.tolist()} rad off the CPU's")
+    return {"ms": ms, "cpu_s": cpu_s, "max_dev_rad": dev.tolist(), "result": res}
+
+
+def deepcalib_inference(images: np.ndarray, truth: list, card: str) -> dict:
+    """evaluate_baseline("deepcalib")'s prediction on the r04 weights at BASELINE_BATCH, fed
+    rendered views from memory, against the port on the CPU on the same bf16-rounded
+    inputs: logits within DEEPCALIB_LOGIT_TOL, and each head's bin equal wherever the
+    CPU's top two logits are more than DEEPCALIB_TIE apart; timed; the summary logged."""
+    net = baselines_lib.load_deepcalib(DEEPCALIB_WEIGHTS)
+    net_cpu = baselines_lib.load_deepcalib(DEEPCALIB_WEIGHTS, "cpu")
+    batches = [images[i:i + BASELINE_BATCH] for i in range(0, len(images), BASELINE_BATCH)]
+    baselines_lib.deepcalib_outputs(net, batches[0])  # warm cuDNN
+    logit_dev, tie_flips, flips = 0.0, 0, 0
+    for batch in batches:
+        out = baselines_lib.deepcalib_outputs(net, batch)
+        ref = baselines_lib.deepcalib_outputs(net_cpu, batch)
+        for head in deepcalib_train.HEADS:
+            a, b = out[f"{head}_logits"].cpu(), ref[f"{head}_logits"]
+            logit_dev = max(logit_dev, float((a - b).abs().max()))
+            top = b.topk(2, -1).values
+            differ = a.argmax(-1) != b.argmax(-1)
+            flips += int(differ.sum())
+            tie_flips += int((differ & ((top[:, 0] - top[:, 1]) > DEEPCALIB_TIE)).sum())
+    x = batches[0]
+    run = lambda: baselines_lib.deepcalib_outputs(net, x)
+    ms = float(np.median([timed(run)[1] for _ in range(5)]))
+    log(f"baselines DeepCalib r04: {len(images)} rendered {BASELINE_SIZE}x{BASELINE_SIZE} views at "
+        f"batch {BASELINE_BATCH}, float32 network (TF32 off) on bf16-rounded inputs: logits card "
+        f"against CPU {logit_dev:.3e} (bound {DEEPCALIB_LOGIT_TOL}); {flips} bins differ, {tie_flips} "
+        f"of them with a top-two margin over {DEEPCALIB_TIE}; {ms:.3f} ms a batch of "
+        f"{BASELINE_BATCH} ({BASELINE_BATCH / ms * 1e3:.1f} images/s); card {card}")
+    check(logit_dev <= DEEPCALIB_LOGIT_TOL, f"DeepCalib: logits {logit_dev:.3e} off the CPU's")
+    check(tie_flips == 0, f"DeepCalib: {tie_flips} bins differ from the CPU's off a tie")
+
+    dataset = rendered_dataset_class({"test.csv": (images, truth)})
+    summaries = {}
+    with seam(baselines_lib, "SimpleDataset", dataset):
+        for method in ("deepcalib", "trivial"):
+            summaries[method] = baselines_lib.evaluate_baseline(
+                method, "rendered", weights=str(DEEPCALIB_WEIGHTS))
+            s = summaries[method]
+            check(s["n_images"] == len(images) and all(
+                np.isfinite(v) for k, v in s.items() if not isinstance(v, str)),
+                f"{method}: the summary is not finite or misses images: {s}")
+            log(f"baselines {method} through evaluate_baseline: median roll/pitch/vfov error "
+                f"{s['median_roll_error']:.3f} / {s['median_pitch_error']:.3f} / "
+                f"{s['median_vfov_error']:.3f} deg; AUC@1/5/10 roll "
+                f"{[round(s[f'auc_roll_error@{t}'], 4) for t in (1, 5, 10)]} pitch "
+                f"{[round(s[f'auc_pitch_error@{t}'], 4) for t in (1, 5, 10)]}")
+    return {"logit_dev": logit_dev, "bin_flips": flips, "ms_per_batch": ms,
+            "images_per_s": BASELINE_BATCH / ms * 1e3, "summaries": summaries}
+
+
+@contextlib.contextmanager
+def seam(module, name: str, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def deepcalib_training(card: str) -> dict:
+    """train_deepcalib.training at its default conf (batch 32, 320x320, the "deepcalib"
+    augmentation, block_config [4, 8, 12, 8], growth 32, 256 bins) on the card, warm-started
+    from the r04 weights through train.init_weights, on rendered views staged from
+    memory: DEEPCALIB_STEPS steps, then DEEPCALIB_RESTORED_STEPS more after restore=True.
+    The restored state must equal the saved one bit for bit, the export read back by
+    the port's reader must equal the final state and carry the conf, and every logged loss
+    must be finite; each step is timed between CUDA events, with the peak memory."""
+    rng = np.random.default_rng(8)
+    splits = {csv: scenes(rng, n, BASELINE_SIZE, BASELINE_SIZE)
+              for csv, n in DEEPCALIB_TRAIN_VIEWS.items()}
+    work = ROOT / ".smoke" / "deepcalib"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    conf = loop_config.merge(deepcalib_train.default_conf, {
+        "train": {"total_steps": DEEPCALIB_STEPS, "log_every": 1, "eval_every": 10**6,
+                  "save_every": 10**6, "init_weights": str(DEEPCALIB_WEIGHTS)},
+        "data": {"dataset_dir": "rendered"}})
+    events, saved, restored = [], {}, {}
+    make_step, manager_cls = deepcalib_train.make_train_step, deepcalib_train.ExperimentManager
+
+    def timed_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*args):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = step(*args)
+            end.record()
+            events.append((start, end))
+            return out
+        return run
+
+    class Manager(manager_cls):
+        def save(self, state, step, *a, **kw):
+            saved[step] = state
+            return super().save(state, step, *a, **kw)
+
+        def restore(self, template, which="last"):
+            state, step = super().restore(template, which)
+            restored[step] = state
+            return state, step
+
+    cwd = Path.cwd()
+    os.chdir(work)  # the export goes to weights/ under the working directory
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    try:
+        with seam(deepcalib_train, "SimpleDataset", rendered_dataset_class(splits)), \
+                seam(deepcalib_train, "make_train_step", timed_step), \
+                seam(deepcalib_train, "ExperimentManager", Manager):
+            deepcalib_train.training(copy.deepcopy(conf), work / "exp")
+            first_export = read_flax_msgpack(work / "weights" / "deepcalib_exp.msgpack")
+            conf["train"]["total_steps"] = DEEPCALIB_STEPS + DEEPCALIB_RESTORED_STEPS
+            deepcalib_train.training(copy.deepcopy(conf), work / "exp", restore=True)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches}
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    records = [json.loads(line) for line in
+               (work / "exp" / "logs" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss/total"] for r in records if "loss/total" in r]
+    restore_ok = DEEPCALIB_STEPS in restored and states_equal(restored[DEEPCALIB_STEPS],
+                                                              saved[DEEPCALIB_STEPS])
+    final = saved[DEEPCALIB_STEPS + DEEPCALIB_RESTORED_STEPS]
+    export = read_flax_msgpack(work / "weights" / "deepcalib_exp.msgpack")
+    tree = deepcalib_params_to_jax({**final.params, **final.batch_stats},
+                                   tuple(conf["train"]["block_config"]))
+    same = lambda a, b: set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    export_ok = all(same(flat_tree(tree[c]), flat_tree(export[c])) for c in ("params", "batch_stats"))
+    conf_ok = export["conf"] == {"num_bins": 256, "block_config": {"0": 4, "1": 8, "2": 12, "3": 8},
+                                 "growth_rate": 32}
+    moved = not same(flat_tree(tree["params"]), flat_tree(first_export["params"]))
+    log(f"baselines DeepCalib training: {len(step_ms)} steps ({DEEPCALIB_STEPS}, then "
+        f"{DEEPCALIB_RESTORED_STEPS} after the restore) at batch {conf['data']['batch_size']}, "
+        f"{BASELINE_SIZE}x{BASELINE_SIZE}, from the r04 weights: step ms "
+        f"{[round(x, 2) for x in step_ms]} (median after the first "
+        f"{float(np.median(step_ms[1:])):.2f}), peak {peak:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}; restore bit for bit {restore_ok}; export equal to the "
+        f"state {export_ok}, conf {conf_ok}, moved since the first export {moved}; launches "
+        f"{json.dumps(launches)}; card {card}")
+    check(len(losses) == DEEPCALIB_STEPS + DEEPCALIB_RESTORED_STEPS
+          and all(np.isfinite(losses)), f"DeepCalib training: losses {losses}")
+    check(restore_ok, "DeepCalib training: the restored state differs from the saved one")
+    check(export_ok and conf_ok, "DeepCalib training: the export differs from the state")
+    check(moved, "DeepCalib training: the restored steps did not move the parameters")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"step_ms": step_ms, "step_ms_median": float(np.median(step_ms[1:])),
+            "peak_gib": peak, "losses": losses, "launches": launches}
+
+
+def flat_tree(tree: dict, prefix: str = "") -> dict:
+    """path -> leaf of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        out.update(flat_tree(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+def baselines_phase(calib, images: np.ndarray, truth: list, card: str) -> dict:
+    """The baselines on the card (see the module docstring): RANSAC and Adam on the fields of
+    one calibrate of request a's views (a path of its own: 1 NMF and 31 LM launches),
+    held to the CPU; DeepCalib inference on the r04 weights and the trivial method through
+    evaluate_baseline; DeepCalib training with a restore and the export. UVP is host-only."""
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    t_phase = time.perf_counter()
+    calib.calibrate(images, batched=True)  # warm
+    zero_counts()
+    out = calib.calibrate(images, batched=True)
+    torch.cuda.synchronize()
+    counts = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches,
+              "lm_by_model": {k: n for k, n in lm_ops.lm_system.launches_by_model.items() if n}}
+    check(counts["nmf"] == 1 and counts["lm_by_model"] == {"pinhole": 31},
+          f"baselines: the fields' calibrate must launch 1 NMF and 31 LM: {counts}")
+    data = {k: out[k].float().contiguous() for k in ("up_field", "latitude_field", "up_confidence",
+                                                    "latitude_confidence")}
+    data_cpu = cpu_copy(data)
+    truth = np.asarray(truth)
+    log(f"baselines: fields of request a's views {tuple(data['up_field'].shape)}, launches "
+        f"{json.dumps(counts)}; UVP is host-only by design (numpy and OpenCV line detection), and "
+        f"the card's machine has no cv2, so it does not run here")
+    ransac = ransac_check(data, data_cpu, card)
+    gd = gd_check(data, data_cpu, card)
+    errors = {"ransac": solver_errors("RANSAC", ransac["result"].gravity, ransac["result"].camera,
+                                      truth, out),
+              "adam": solver_errors("Adam", gd["result"].gravity, gd["result"].camera, truth, out)}
+    views, view_truth = scenes(np.random.default_rng(7), BASELINE_VIEWS, BASELINE_SIZE,
+                               BASELINE_SIZE)
+    inference = deepcalib_inference(views, view_truth, card)
+    training = deepcalib_training(card)
+    seconds = time.perf_counter() - t_phase
+    log(f"baselines phase: {seconds:.1f} s; card {card}")
+    return {"launches": {k: counts[k] for k in ("lm_system", "nmf")},
+            "lm_by_model": counts["lm_by_model"], "seconds": seconds,
+            "ransac": {k: v for k, v in ransac.items() if k != "result"},
+            "adam": {k: v for k, v in gd.items() if k != "result"}, "errors": errors,
+            "deepcalib": {k: v for k, v in inference.items() if k != "summaries"},
+            "summaries": inference["summaries"], "deepcalib_train": training}
+
+
 # ---------------------------------------------------------------- distributed phase
 
 def state_digest(state) -> str:
@@ -2489,12 +2844,14 @@ def main() -> int:
     loop = loop_phase(weights, card)
     generate = generate_phase(calib, card)
     demo = demo_phase(calib, generate["crops"]["openpano_radial_v2"], card)
+    baselines = baselines_phase(calib, images, truth, card)
     distributed = distributed_phase(weights, calib, images, card,
                                     train["compare"]["float32 ift"]["kernels"]["leaf_rel"])
 
     by_model = {m: sum(c["lm_system_by_model"].get(m, 0) for c in counts.values())
                 + evaluation["lm_by_model"][m] + generate["launches"]["lm_by_model"].get(m, 0)
-                + demo["launches"]["lm_by_model"].get(m, 0) for m in lm_ops.MODEL_IDS}
+                + demo["launches"]["lm_by_model"].get(m, 0)
+                + baselines["lm_by_model"].get(m, 0) for m in lm_ops.MODEL_IDS}
     by_model["pinhole"] += (train["launches"]["lm_system"] + loop["launches"]["lm_system"]
                             + distributed["launches"]["lm_system"])
     for model, entry in lm["per_model"].items():
@@ -2502,6 +2859,7 @@ def main() -> int:
     paths = lambda name: {"serving a-f": launches[name], "eval": evaluation["launches"][name],
                           "train": train["launches"][name], "loop": loop["launches"][name],
                           "generate": generate["launches"][name], "demo": demo["launches"][name],
+                          "baselines": baselines["launches"][name],
                           "distributed": distributed["launches"][name]}
     cost_only = lm.pop("cost_only")
     kernels = [
@@ -2541,6 +2899,7 @@ def main() -> int:
     log(json.dumps({"loop": loop, "card": card}, default=str))
     log(json.dumps({"generate": {k: v for k, v in generate.items() if k != "crops"},
                     "demo": demo, "card": card}, default=str))
+    log(json.dumps({"baselines": baselines, "card": card}, default=str))
     log(json.dumps({"distributed": distributed, "card": card}, default=str))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

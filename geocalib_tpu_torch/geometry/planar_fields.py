@@ -31,6 +31,18 @@ def make_grid(camera: Camera, h: int, w: int) -> Tuple[Tensor, Tensor]:
     return (xx - cx) / fx, (yy - cy) / fy
 
 
+def strided_grid(camera: Camera, h: int, w: int, stride: int) -> Tuple[Tensor, Tensor]:
+    """Normalized coords for every stride-th pixel (matches grid[::s, ::s])."""
+    dev = camera.f.device
+    x = torch.arange(0, w, stride, dtype=torch.float32, device=dev)
+    y = torch.arange(0, h, stride, dtype=torch.float32, device=dev)
+    xx = x.repeat(y.shape[0])
+    yy = y.repeat_interleave(x.shape[0])
+    fx, fy = camera.f[..., 0:1], camera.f[..., 1:2]
+    cx, cy = camera.c[..., 0:1], camera.c[..., 1:2]
+    return (xx - cx) / fx, (yy - cy) / fy
+
+
 def _k_planes(camera: Camera) -> Tuple[Tensor, Tensor]:
     return camera.k[..., 0:1], camera.k[..., 1:2]
 

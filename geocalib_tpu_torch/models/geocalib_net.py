@@ -37,7 +37,7 @@ RUNNING_STATS = ("running_mean", "running_var")
 class LowLevelEncoder(nn.Module):
     """Two 3×3 conv + ReLU at full resolution."""
 
-    def __init__(self, feat_dim: int):
+    def __init__(self, feat_dim: int = 64):
         super().__init__()
         self.conv1 = ConvModule(3, feat_dim, 3, padding=1)
         self.conv2 = ConvModule(feat_dim, feat_dim, 3, padding=1)
@@ -46,6 +46,49 @@ class LowLevelEncoder(nn.Module):
         assert image.shape[2] % 32 == 0 and image.shape[3] % 32 == 0, (
             "image size must be a multiple of 32")
         return self.conv2(self.conv1(image))
+
+
+def up_field(proj: Tensor) -> Tensor:
+    """The up head's 1×1 projection (B, 2, H, W) → the L2-normalized up field (B, H, W, 2),
+    the norm's square clamped at 1e-24 inside the sqrt."""
+    up = proj.permute(0, 2, 3, 1)
+    return up / torch.sqrt(torch.clamp(torch.sum(up * up, dim=-1, keepdim=True), min=1e-24))
+
+
+def latitude_field(proj: Tensor) -> Tensor:
+    """The latitude head's 1×1 projection (B, 1, H, W) → the latitude field (B, H, W, 1):
+    tanh → clamp → asin in float32 (in bf16 the clamp is a no-op), in proj's dtype."""
+    eps = 1e-5
+    lat = torch.tanh(proj.permute(0, 2, 3, 1).float())
+    return torch.arcsin(torch.clamp(lat, -1 + eps, 1 - eps)).to(proj.dtype)
+
+
+class UpDecoder(nn.Module):
+    """LightHamHead → 1×1 conv → L2-normalized up field (evaluation path); the
+    counterpart of the JAX package's UpDecoder (GeoCalibNet runs both heads itself)."""
+
+    def __init__(self, out_channels: int = 64, ham_channels: int = 512, in_channels: int = 1024):
+        super().__init__()
+        self.head = LightHamHead(in_channels, ham_channels, out_channels)
+        self.proj = nn.Conv2d(out_channels, 2, 1)
+
+    def forward(self, hl, ll: Tensor) -> Dict[str, Tensor]:
+        feats, log_conf = self.head(hl, ll)
+        return {"up_field": up_field(self.proj(feats)), "up_confidence": torch.sigmoid(log_conf)}
+
+
+class LatitudeDecoder(nn.Module):
+    """LightHamHead → 1×1 conv → tanh → asin latitude field (evaluation path)."""
+
+    def __init__(self, out_channels: int = 64, ham_channels: int = 512, in_channels: int = 1024):
+        super().__init__()
+        self.head = LightHamHead(in_channels, ham_channels, out_channels)
+        self.proj = nn.Conv2d(out_channels, 1, 1)
+
+    def forward(self, hl, ll: Tensor) -> Dict[str, Tensor]:
+        feats, log_conf = self.head(hl, ll)
+        return {"latitude_field": latitude_field(self.proj(feats)),
+                "latitude_confidence": torch.sigmoid(log_conf)}
 
 
 class GeoCalibNet(nn.Module):
@@ -122,14 +165,9 @@ class GeoCalibNet(nn.Module):
         fu, conf_u = self.up_head.back(xu, recon[:B], ll)
         fl, conf_l = self.lat_head.back(xl, recon[B:], ll)
 
-        up = self.up_proj(fu).permute(0, 2, 3, 1)
-        up = up / torch.sqrt(torch.clamp(torch.sum(up * up, dim=-1, keepdim=True), min=1e-24))
-        eps = 1e-5  # tanh → clamp → asin in float32: in bf16 the clamp is a no-op
-        lat = torch.tanh(self.lat_proj(fl).permute(0, 2, 3, 1).float())
-        lat = torch.arcsin(torch.clamp(lat, -1 + eps, 1 - eps)).to(up.dtype)
         return {
-            "up_field": up,
+            "up_field": up_field(self.up_proj(fu)),
             "up_confidence": torch.sigmoid(conf_u),
-            "latitude_field": lat,
+            "latitude_field": latitude_field(self.lat_proj(fl)),
             "latitude_confidence": torch.sigmoid(conf_l),
         }

@@ -69,7 +69,7 @@ class LightHamHead(nn.Module):
     head's features and log-confidence.
     """
 
-    def __init__(self, in_channels: int, ham_channels: int, out_channels: int):
+    def __init__(self, in_channels: int = 1024, ham_channels: int = 512, out_channels: int = 64):
         super().__init__()
         self.squeeze = ConvModule(in_channels, ham_channels, 1)
         self.ham_in = ConvModule(ham_channels, ham_channels, 1)
@@ -84,6 +84,15 @@ class LightHamHead(nn.Module):
         """(x, h): the squeezed features and the NMF's input, NCHW."""
         x = self.squeeze(torch.cat([resize_bilinear(f, hl[0].shape[-2:]) for f in hl], dim=1))
         return x, self.ham_in(x)
+
+    def forward(self, hl: Sequence[Tensor], ll: Tensor) -> Tuple[Tensor, Tensor]:
+        """(features, log_confidence) of the evaluation path: ``front``, the NMF of the
+        head's own tokens from the evaluation bases, ``back``."""
+        x, h = self.front(hl)
+        B, C, hh, ww = h.shape
+        tokens = h.permute(0, 2, 3, 1).reshape(B, hh * ww, C).contiguous()
+        recon = nmf_2d(tokens, eval_bases(B, C, tokens.device, tokens.dtype))
+        return self.back(x, recon.reshape(B, hh, ww, C).permute(0, 3, 1, 2), ll)
 
     def back(self, x: Tensor, recon: Tensor, ll: Tensor) -> Tuple[Tensor, Tensor]:
         """(features, log_confidence) at full resolution, NCHW."""

@@ -35,9 +35,10 @@ class MSCAN(nn.Module):
     Input: RGB in [0, 1], NCHW, mapped to BGR × 255 as the reference weights expect.
     """
 
-    def __init__(self, dims: Sequence[int], mlp_ratios: Sequence[int], depths: Sequence[int],
-                 drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 mesh: Optional[Mesh] = None):
+    def __init__(self, dims: Sequence[int] = MSCAN_VARIANTS["b"][0],
+                 mlp_ratios: Sequence[int] = MSCAN_VARIANTS["b"][1],
+                 depths: Sequence[int] = MSCAN_VARIANTS["b"][2], drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, mesh: Optional[Mesh] = None):
         super().__init__()
         total = sum(depths)
         dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]

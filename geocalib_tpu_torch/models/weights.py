@@ -10,13 +10,17 @@ keys in the tree's own order and every value in msgpack's smallest form, so
 the bytes are Flax's for the same tree. ``params_from_jax``
 maps the Flax tree ``{"params", "batch_stats"}`` onto ``GeoCalibNet``'s
 parameter names, turning HWIO kernels into OIHW; ``params_to_jax`` maps
-back. Both walk one table of the leaves (``_entries``).
+back. Both walk one table of the leaves (``_entries``). The baselines'
+networks have tables of their own (``deepcalib_params_from_jax``/``_to_jax``;
+``zoo_params_from_jax``/``_to_jax`` for VGG, ResNet and FPN), where a Dense
+kernel (in, out) becomes a Linear weight (out, in), and a tree must map with
+no leaf left over either way.
 """
 
 import functools
 import struct
 from pathlib import Path
-from typing import Any, Dict, Iterator, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -267,17 +271,39 @@ def _entries(variant: str) -> Iterator[Tuple[str, str, Tuple[str, ...], str]]:
     yield from conv("lat_proj", ("LatitudeDecoder_0", "Conv_0"), ())
 
 
-def params_from_jax(tree: Dict[str, Any], variant: str = "b") -> Dict[str, torch.Tensor]:
-    """GeoCalibNet(variant) state_dict from a Flax tree {"params", "batch_stats"}:
-    float32 copies, HWIO kernels turned into OIHW."""
+def _state_from(tree: Dict[str, Any], entries) -> Dict[str, torch.Tensor]:
+    """The state_dict of `entries` read from a Flax tree: float32 copies, HWIO kernels
+    turned into OIHW and Dense kernels (in, out) into Linear weights (out, in)."""
     sd: Dict[str, torch.Tensor] = {}
-    for name, coll, path, kind in _entries(variant):
+    for name, coll, path, kind in entries:
         a = np.asarray(functools.reduce(lambda node, k: node[k], path, tree[coll]))
-        sd[name] = torch.from_numpy(np.array(a.transpose(3, 2, 0, 1) if kind == "kernel" else a,
-                                             np.float32, order="C"))
+        a = a.transpose(3, 2, 0, 1) if kind == "kernel" else a.T if kind == "dense" else a
+        sd[name] = torch.from_numpy(np.array(a, np.float32, order="C"))
         if name.endswith(".running_var"):
             sd[name[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def _tree_from(named: Dict[str, torch.Tensor], entries) -> Dict[str, Any]:
+    """The Flax-named numpy tree {"params", "batch_stats"} of the entries that `named`
+    holds, OIHW kernels turned into HWIO and Linear weights into Dense kernels."""
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for name, coll, path, kind in entries:
+        if name not in named:
+            continue
+        a = named[name].detach().float().cpu().numpy()
+        a = a.transpose(2, 3, 1, 0) if kind == "kernel" else a.T if kind == "dense" else a
+        node = tree[coll]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree
+
+
+def params_from_jax(tree: Dict[str, Any], variant: str = "b") -> Dict[str, torch.Tensor]:
+    """GeoCalibNet(variant) state_dict from a Flax tree {"params", "batch_stats"}:
+    float32 copies, HWIO kernels turned into OIHW."""
+    return _state_from(tree, _entries(variant))
 
 
 def sorted_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -291,13 +317,167 @@ def params_to_jax(named: Dict[str, torch.Tensor], variant: str = "b") -> Dict[st
     {"params", "batch_stats"} of the entries of ``named`` (parameters, their
     gradients or the running statistics, by GeoCalibNet name), OIHW kernels
     turned into HWIO. Names it does not hold are left out of the tree."""
-    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
-    for name, coll, path, kind in _entries(variant):
-        if name not in named:
-            continue
-        a = named[name].detach().float().cpu().numpy()
-        node = tree[coll]
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(a.transpose(2, 3, 1, 0) if kind == "kernel" else a)
-    return tree
+    return _tree_from(named, _entries(variant))
+
+
+# ---------------------------------------------------------------------- #
+# Flax parameter trees <-> the baselines' networks (DeepCalib, VGG, ResNet, FPN)
+# ---------------------------------------------------------------------- #
+
+def _conv(name: str, path: Tuple[str, ...], bias: bool = True):
+    """A models/modules.Conv2d at path (its nn.Conv is Conv_0)."""
+    yield f"{name}.weight", "params", path + _CONV2D + ("kernel",), "kernel"
+    if bias:
+        yield f"{name}.bias", "params", path + _CONV2D + ("bias",), "leaf"
+
+
+def _bn(name: str, path: Tuple[str, ...]):
+    """A models/modules.BatchNorm at path (its nn.BatchNorm is BatchNorm_0)."""
+    yield f"{name}.weight", "params", path + _BN + ("scale",), "leaf"
+    yield f"{name}.bias", "params", path + _BN + ("bias",), "leaf"
+    yield f"{name}.running_mean", "batch_stats", path + _BN + ("mean",), "leaf"
+    yield f"{name}.running_var", "batch_stats", path + _BN + ("var",), "leaf"
+
+
+def _dense(name: str, path: Tuple[str, ...]):
+    yield f"{name}.weight", "params", path + ("kernel",), "dense"
+    yield f"{name}.bias", "params", path + ("bias",), "leaf"
+
+
+def _dense_block(name: str, path: Tuple[str, ...], num_layers: int):
+    for j in range(num_layers):
+        layer, lpath = f"{name}.layers.{j}", path + (f"DenseLayer_{j}",)
+        yield from _bn(f"{layer}.bn1", lpath + ("BatchNorm_0",))
+        yield from _conv(f"{layer}.conv1", lpath + ("Conv2d_0",), bias=False)
+        yield from _bn(f"{layer}.bn2", lpath + ("BatchNorm_1",))
+        yield from _conv(f"{layer}.conv2", lpath + ("Conv2d_1",), bias=False)
+
+
+def _transition(name: str, path: Tuple[str, ...]):
+    yield from _bn(f"{name}.bn", path + ("BatchNorm_0",))
+    yield from _conv(f"{name}.conv", path + ("Conv2d_0",), bias=False)
+
+
+def _deepcalib_entries(block_config: Sequence[int], num_heads: int = 4):
+    """The leaves of models/deepcalib.DeepCalib, by Flax's naming: DenseNet_0/{Conv2d_0,
+    BatchNorm_0, DenseBlock_i/DenseLayer_j, Transition_i} and ClassificationHead_0..3/
+    {Transition_0, DenseBlock_0, BatchNorm_0, Dense_0, Dense_1}."""
+    dn = ("DenseNet_0",)
+    yield from _conv("trunk.conv0", dn + ("Conv2d_0",), bias=False)
+    yield from _bn("trunk.bn0", dn + ("BatchNorm_0",))
+    for i, n in enumerate(block_config):
+        yield from _dense_block(f"trunk.blocks.{i}", dn + (f"DenseBlock_{i}",), n)
+        if i != len(block_config) - 1:
+            yield from _transition(f"trunk.transitions.{i}", dn + (f"Transition_{i}",))
+    for h in range(num_heads):
+        name, path = f"heads.{h}", (f"ClassificationHead_{h}",)
+        yield from _transition(f"{name}.transition", path + ("Transition_0",))
+        yield from _dense_block(f"{name}.block", path + ("DenseBlock_0",), 3)
+        yield from _bn(f"{name}.bn", path + ("BatchNorm_0",))
+        yield from _dense(f"{name}.fc1", path + ("Dense_0",))
+        yield from _dense(f"{name}.fc2", path + ("Dense_1",))
+
+
+def _vgg_entries(module):
+    for j in range(len(module.convs)):
+        yield from _conv(f"convs.{j}", (f"Conv2d_{j}",))
+
+
+def _resnet_entries(module):
+    yield from _conv("stem", ("Conv2d_0",), bias=False)
+    yield from _bn("stem_bn", ("BatchNorm_0",))
+    for k, block in enumerate(module.blocks):
+        name, path = f"blocks.{k}", (f"ResNetBlock_{k}",)
+        yield from _conv(f"{name}.conv1", path + ("Conv2d_0",), bias=False)
+        yield from _bn(f"{name}.bn1", path + ("BatchNorm_0",))
+        yield from _conv(f"{name}.conv2", path + ("Conv2d_1",), bias=False)
+        yield from _bn(f"{name}.bn2", path + ("BatchNorm_1",))
+        if block.downsample is not None:
+            yield from _conv(f"{name}.downsample.0", path + ("Conv2d_2",), bias=False)
+            yield from _bn(f"{name}.downsample.1", path + ("BatchNorm_2",))
+
+
+def _fpn_entries(module):
+    """Flax numbers each kind of submodule in call order: the laterals are Conv2d_0..L-1,
+    the GLU gates the next Conv2d, the confidence conv the last; the ConvModules go
+    level by level (the ff fusion before the level's smoothing), then the upsampled
+    features, the low-level features and the uncertainty."""
+    n_lat = len(module.laterals)
+    for i in range(n_lat):
+        yield from _conv(f"laterals.{i}", (f"Conv2d_{i}",))
+    n_conv, n_cm = n_lat, 0
+    cm = lambda name, k, bias=True: _conv(f"{name}.conv", (f"ConvModule_{k}", "Conv2d_0"), bias)
+    for level in range(n_lat - 1):
+        if module.fusion == "glu":
+            yield from _conv(f"gates.{level}", (f"Conv2d_{n_conv}",))
+            n_conv += 1
+        if module.fusion == "ff":
+            yield from cm(f"fuse.{level}", n_cm)
+            n_cm += 1
+        yield from cm(f"smooth.{level}", n_cm)
+        n_cm += 1
+    yield from cm("up", n_cm)
+    yield from cm("low_level", n_cm + 1)
+    yield from cm("unc", n_cm + 2, bias=False)
+    yield from _conv("conf", (f"Conv2d_{n_conv}",))
+
+
+def zoo_entries(module) -> list:
+    """(port name, Flax collection, path, kind) of every leaf of a VGG, ResNet or FPN of
+    the port, as the JAX module of the same configuration names it."""
+    kind = type(module).__name__
+    table = {"VGG": _vgg_entries, "ResNet": _resnet_entries, "FPN": _fpn_entries}
+    if kind not in table:
+        raise ValueError(f"no Flax mapping for {kind}")
+    return list(table[kind](module))
+
+
+def _flax_leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flax_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+def _check_covers(tree: Dict[str, Any], entries) -> None:
+    """Every leaf of the tree's params and batch_stats is an entry, and every entry a leaf."""
+    have = {(c,) + p for c in ("params", "batch_stats") for p in _flax_leaves(tree.get(c, {}))}
+    want = {(coll,) + path for _, coll, path, _ in entries}
+    if have != want:
+        raise ValueError(f"Flax tree and module differ: {len(have - want)} leaves of the tree "
+                         f"unmapped {sorted(have - want)[:3]}, {len(want - have)} missing "
+                         f"{sorted(want - have)[:3]}")
+
+
+def zoo_params_from_jax(module, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state_dict of `module` (a port VGG, ResNet or FPN) from the Flax
+    tree {"params", "batch_stats"} of the JAX module of the same configuration; every
+    leaf of the tree must map, and every parameter and running statistic be found."""
+    entries = zoo_entries(module)
+    _check_covers(tree, entries)
+    return _state_from(tree, entries)
+
+
+def zoo_params_to_jax(module, named: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """The inverse of ``zoo_params_from_jax``: the Flax tree {"params", "batch_stats"} of
+    `named` (by default the module's own state_dict), keys sorted as a jitted Flax init
+    returns them."""
+    named = module.state_dict() if named is None else named
+    return sorted_tree(_tree_from(named, zoo_entries(module)))
+
+
+def deepcalib_params_from_jax(tree: Dict[str, Any], block_config: Sequence[int]
+                              ) -> Dict[str, torch.Tensor]:
+    """DeepCalib's state_dict from a Flax tree {"params", "batch_stats"} (every leaf
+    mapped, none missing)."""
+    entries = list(_deepcalib_entries(block_config))
+    _check_covers(tree, entries)
+    return _state_from(tree, entries)
+
+
+def deepcalib_params_to_jax(named: Dict[str, torch.Tensor], block_config: Sequence[int]
+                            ) -> Dict[str, Any]:
+    """DeepCalib's Flax tree {"params", "batch_stats"} from its state_dict (or any dict of
+    its parameters and running statistics by name), keys sorted."""
+    return sorted_tree(_tree_from(named, _deepcalib_entries(block_config)))

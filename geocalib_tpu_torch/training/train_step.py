@@ -145,9 +145,12 @@ def _unflat(flat: Tensor, like: Tree) -> Tree:
 
 
 def optimizer_update(grads: Tree, state: AdamState, params: Tree, cfg: TrainConfig,
-                     finite: Union[bool, Tensor] = True, mesh: Optional[Mesh] = None
+                     finite: Union[bool, Tensor] = True, mesh: Optional[Mesh] = None,
+                     schedule: Optional[Callable[[Tensor], Tensor]] = None
                      ) -> Tuple[Tree, AdamState, Dict[str, Tensor]]:
     """The step's optimizer: (new parameters, new state, {"grad_norm", "grad_nonfinite"}).
+    The rate comes from ``schedule`` (count -> float32 rate), by default
+    ``make_schedule(cfg)``; cfg gives the clip and the weight decay.
 
     The gradients, concatenated into one vector, take their mean over the mesh's
     ranks (one collective; none without a mesh). Non-finite gradient values are
@@ -170,7 +173,7 @@ def optimizer_update(grads: Tree, state: AdamState, params: Tree, cfg: TrainConf
     decay = lambda b: torch.full((), b, dtype=torch.float32, device=step.device)
     bc1 = 1.0 - torch.pow(decay(ADAM_B1), step)
     bc2 = 1.0 - torch.pow(decay(ADAM_B2), step)
-    lr = make_schedule(cfg)(state.count)
+    lr = (schedule or make_schedule(cfg))(state.count)
     u = (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + ADAM_EPS)
     new_p = p + -lr * (u + cfg.weight_decay * p)
     finite = torch.as_tensor(finite, device=p.device)

@@ -1,7 +1,7 @@
 """Angle / focal-length / rotation conversions on tensors.
 
-Port of the parts of geocalib_tpu/utils/conversions.py the slice uses; every
-function broadcasts over arbitrary batch shapes.
+Port of geocalib_tpu/utils/conversions.py; every function broadcasts over
+arbitrary batch shapes.
 """
 
 import math
@@ -9,6 +9,11 @@ import math
 import torch
 
 Tensor = torch.Tensor
+
+
+def rad2deg(rad: Tensor) -> Tensor:
+    """Convert radians to degrees."""
+    return rad * (180.0 / math.pi)
 
 
 def deg2rad(deg: Tensor) -> Tensor:
@@ -24,6 +29,24 @@ def fov2focal(fov: Tensor, size: Tensor) -> Tensor:
 def focal2fov(focal: Tensor, size: Tensor) -> Tensor:
     """Field of view (radians) from focal length and image size (pixels)."""
     return 2.0 * torch.arctan(size / (2.0 * focal))
+
+
+def pitch2rho(pitch: Tensor, f: Tensor, h: Tensor) -> Tensor:
+    """Distance from principal point to horizon, normalized by image height."""
+    return torch.tan(pitch) * f / h
+
+
+def rho2pitch(rho: Tensor, f: Tensor, h: Tensor) -> Tensor:
+    """Pitch angle from normalized distance to horizon."""
+    return torch.arctan(rho * h / f)
+
+
+def skew_symmetric(v: Tensor) -> Tensor:
+    """Skew-symmetric matrix (..., 3, 3) from vector (..., 3)."""
+    z = torch.zeros_like(v[..., 0])
+    rows = torch.stack([z, -v[..., 2], v[..., 1], v[..., 2], z, -v[..., 0], -v[..., 1], v[..., 0], z],
+                       dim=-1)
+    return rows.reshape(v.shape[:-1] + (3, 3))
 
 
 def rad2rotmat(roll: Tensor, pitch: Tensor, yaw=None) -> Tensor:

@@ -470,3 +470,17 @@ def test_render_and_undistort_on_the_card_match_the_cpu(card, model):
     und = cam.undistort_image(crops)
     ref = generate.row_views(rows, yaw, model, "cpu")[0].undistort_image(crops.cpu())
     torch.testing.assert_close(und.cpu(), ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(16, 1000, 480, 640), (3, 37, 61, 45)])
+def test_ransac_samples_on_the_card_equal_the_cpu(card, shape):
+    """RANSAC's minimal samples come from the port's threefry (int64 hashes on the device):
+    the card draws the CPU's pixels bit for bit, for request a's fields and a ragged shape."""
+    from geocalib_tpu_torch.optim import ransac
+
+    B, n, h, w = shape
+    for key in ((0, 0), (0, 7), (123, 456)):
+        xs, ys = ransac.sample_pixels(B, n, h, w, key, card)
+        xs_c, ys_c = ransac.sample_pixels(B, n, h, w, key, "cpu")
+        assert torch.equal(xs.cpu(), xs_c) and torch.equal(ys.cpu(), ys_c)
+        assert int(xs.min()) >= 0 and int(xs.max()) < w and int(ys.max()) < h

@@ -10,7 +10,9 @@ each import must name the standard library, torch, numpy, the package itself
 or chip_smoke, except that a function may import PIL, h5py or yaml (image
 files, h5 results and a user's YAML conf, as the JAX package does), wandb
 (an optional backend of the metrics writer), matplotlib (figures), gradio
-(the web demo) or cv2 (HDR files and the webcam loop). The machine with the
+(the web demo), cv2 (HDR files, the webcam loop and UVP's line detector) or
+the external libraries that the import-gated baselines wrap
+(vp_estimation_with_prior_gravity, pytlsd, deeplsd, dust3r). The machine with the
 card has none of the others. Every module of the package is then imported in
 a fresh interpreter, which must not have loaded jax, geocalib_tpu, PIL, h5py,
 yaml, wandb, tensorboard, matplotlib, gradio or cv2. The msgpack reader that replaces flax.serialization is
@@ -32,8 +34,10 @@ from geocalib_tpu_torch.models.weights import read_flax_msgpack
 
 ROOT = Path(__file__).resolve().parents[1]
 ALLOWED = {"torch", "numpy", "geocalib_tpu_torch", "chip_smoke"}
-# optional on the card: imported where a file is read or written, or a backend started
-IN_FUNCTIONS = {"PIL", "h5py", "yaml", "wandb", "matplotlib", "gradio", "cv2"}
+# optional on the card: imported where a file is read or written, or a backend started;
+# and the external libraries of the import-gated baselines (models/baselines.py)
+IN_FUNCTIONS = {"PIL", "h5py", "yaml", "wandb", "matplotlib", "gradio", "cv2",
+                "vp_estimation_with_prior_gravity", "pytlsd", "deeplsd", "dust3r"}
 FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "geocalib_tpu", "triton"}
 FILES = sorted((ROOT / "geocalib_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "torch_path_witness.py",
@@ -97,6 +101,36 @@ def test_distributed_and_profiling_modules_are_guarded():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "0", "1", "None"], out.stdout
+
+
+BASELINE_MODULES = ["optim/ransac.py", "optim/gradient.py", "models/uvp.py",
+                    "models/deepcalib.py", "models/encoders.py", "models/fpn.py",
+                    "models/perspective_encoding.py", "models/registry.py",
+                    "models/baselines.py", "eval/baselines_cli.py",
+                    "training/train_deepcalib.py"]
+
+
+@pytest.mark.parametrize("name", BASELINE_MODULES)
+def test_baseline_modules_are_guarded(name):
+    """The baselines' eleven modules are among the files whose imports are held above, and
+    import optional packages only inside functions."""
+    path = ROOT / "geocalib_tpu_torch" / name
+    assert path in FILES, name
+    assert all(in_function for top, in_function in _imports(path)
+               if top in IN_FUNCTIONS), name
+
+
+def test_importing_the_baselines_loads_no_optional_module():
+    """cv2 only inside UVP's detector; the gated wrappers' packages only when constructed."""
+    modules = ["geocalib_tpu_torch." + n[:-3].replace("/", ".") for n in BASELINE_MODULES]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
+            + "print(sorted(m for m in ('jax', 'geocalib_tpu', 'cv2', 'PIL', 'h5py', 'yaml', "
+            "'vp_estimation_with_prior_gravity', 'pytlsd', 'deeplsd', 'dust3r') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
 def test_read_flax_msgpack_matches_flax(tmp_path):

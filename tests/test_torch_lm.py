@@ -33,6 +33,20 @@ from geocalib_tpu_torch.optim.lm import LMConfig, get_heuristic_estimation, run_
 MODELS = ["pinhole", "simple_radial", "radial", "simple_divisional"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this file's torch work, as the other port test files run:
+    the port's sums then take one order in every run, whatever the worker's core count.
+    (On these 768-pixel fixtures 1 to 8 threads already gave the same bits, and the JAX
+    side the same stop_at at every XLA thread count, vector width and ISA tried, so
+    test_run_lm_matches_jax[None-simple_divisional] fails the same way in every run: the
+    port stops lane 3 at 12, JAX at 11, the stop test one float32 ulp from its threshold.)"""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _setup(model, B=3, h=16, w=16, conf=True):
     """The fixture of tests/test_pallas_kernel.py::_setup, as numpy arrays; the radial
     model also gets a k2, from a stream of its own so the other fixtures stay as they were."""
