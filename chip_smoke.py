@@ -140,6 +140,23 @@ final state with its conf, every loss finite. Times (CUDA events) and peak
 memory are printed with the card. UVP is host-only (numpy and OpenCV by
 design; the card's machine has no cv2): the phase says so and does not run it.
 
+Then the hub_pose phase (hub.py, models/convert_torch.py, pose_estimation.py,
+ops/winograd.py), a path of its own. Hub: an original GeoCalib checkpoint is
+made in memory from the r05 Flax tree (the converter's table read backwards)
+and torch.saved into a temporary directory outside the repository, with
+GEOCALIB_TPU_CACHE pointing at another; hub.load converts and caches it, and
+its GeoCalib must give request a's 16 views bit for bit as the r05 msgpack
+does, and again after a second load from the cache (each calibrate 1 NMF and
+31 LM launches, counted). Pose: AbsolutePoseEstimator with the card's
+GeoCalib on request a's first POSE_VIEWS views, each with ground-plane
+correspondences of a known pose and seeded outliers; the same estimator on the
+CPU given the same calibration must return the same bits, and the recovered
+rotation must lie within the bound argued at POSE_GRAVITY_SHARE of the
+calibration's gravity error (1 NMF and 31 LM launches a view, counted).
+Winograd: winograd_conv3x3 against F.conv2d in float32 with TF32 off, at
+tests/test_winograd.py's shapes and at the LightHamHead's 3x3 shape, within
+2e-4, both timed.
+
 Last, the distributed phase (parallel/mesh.py), a path of its own: 2 IFT steps
 of the train phase's setup with a float32 network, without a process group
 and with an NCCL group of one rank in this process, bit for bit equal; then
@@ -187,6 +204,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Tuple
@@ -196,6 +214,7 @@ import torch
 import torch.distributed as dist
 
 import geocalib_tpu_torch
+from geocalib_tpu_torch import hub as hub_lib, pose_estimation as pose_lib
 from geocalib_tpu_torch.data import generate as gen_lib, pano as pano_lib
 from geocalib_tpu_torch.data.dataset import synthesize_gt_fields
 from geocalib_tpu_torch.demo import demo as demo_lib, overlays as overlays_lib
@@ -209,10 +228,10 @@ from geocalib_tpu_torch.training import train as loop_lib
 from geocalib_tpu_torch.training import train_deepcalib as deepcalib_train
 from geocalib_tpu_torch.training import train_step as train_lib
 from geocalib_tpu_torch.utils import config as loop_config
-from geocalib_tpu_torch.models import hamburger, modules as modules_lib
+from geocalib_tpu_torch.models import convert_torch, hamburger, modules as modules_lib
 from geocalib_tpu_torch.models.weights import (deepcalib_params_to_jax, params_from_jax,
                                                read_flax_msgpack)
-from geocalib_tpu_torch.ops import build, lm_system as lm_ops, nmf as nmf_ops
+from geocalib_tpu_torch.ops import build, lm_system as lm_ops, nmf as nmf_ops, winograd
 from geocalib_tpu_torch.optim import gradient as gd_lib, lm as lm_solver, ransac as ransac_lib
 from geocalib_tpu_torch.geometry.camera import Camera
 from geocalib_tpu_torch.geometry.gravity import Gravity
@@ -317,6 +336,32 @@ DEEPCALIB_LOGIT_TOL, DEEPCALIB_TIE = 1e-3, 1e-3
 RANSAC_HYP_TOL, RANSAC_SPREAD_DRAWS, RANSAC_ILL_SHARE = 1e-5, 8, 0.01
 # radians, Adam's final roll, pitch and vFoV, card against CPU (argued in PERF.md §6)
 GD_TOL = 1e-4
+
+# The hub_pose phase (hub.py, models/convert_torch.py, pose_estimation.py, ops/winograd.py).
+# Pose: request a's first POSE_VIEWS views, each with POSE_POINTS ground-plane
+# correspondences of a known pose, POSE_OUTLIER_SHARE of them replaced by outliers drawn at
+# least POSE_OUTLIER_MIN_PX from their point's true projection (twice the estimator's
+# 48-pixel inlier threshold, so that an outlier is never taken for an inlier). The bound on
+# the recovered rotation, argued before the first card run: the estimator's refinement
+# minimises the inliers' squared reprojection error plus w·|R g_w − g_c|² (w = 50,000),
+# where g_c, the calibration's gravity, is δ_g off the truth. The inliers are exact, so
+# their term is 0 at the true pose and grows as κ·N·f²·φ² with the tilt error φ (N ≈ 140
+# inliers, f ≥ 400 px; κ ≤ 1 is the share of that curvature the translation cannot absorb,
+# at least 0.2 for ground points 2 to 40 m away). At the optimum φ = δ_g·w / (w + κ·N·f²)
+# ≤ 0.011·δ_g; the yaw has no prior and the points fix it. So angle(R, R_true) ≤
+# POSE_GRAVITY_SHARE·δ_g + POSE_FLOOR_DEG, the floor for Gauss-Newton's 10 steps with a
+# numeric Jacobian. The bound is judged where the estimator takes the gravity branch: a
+# view whose gravity uncertainty is over PoseOpts.max_uncertainty (10°) falls back to DLT
+# PnP, which is degenerate on coplanar points (the JAX package's design, copied), so those
+# views are reported, not judged; at least one view must take the gravity branch.
+POSE_VIEWS, POSE_POINTS, POSE_OUTLIER_SHARE, POSE_OUTLIER_MIN_PX = 8, 200, 0.3, 96.0
+POSE_GRAVITY_SHARE, POSE_FLOOR_DEG = 0.05, 0.01
+# Winograd on the card against F.conv2d, float32 with TF32 off: the shapes of
+# tests/test_winograd.py (B, H, W, C, F) and the LightHamHead's 3x3 conv_up at an eval
+# batch of 8 at 320x320 (64 channels at 160x160), within that test's rtol and atol.
+WINOGRAD_SHAPES = [(2, 8, 8, 4, 6), (1, 16, 12, 8, 8), (2, 32, 32, 16, 16), (2, 32, 32, 32, 32),
+                   (8, 160, 160, 64, 64)]
+WINOGRAD_TOL = 2e-4
 
 # The distributed phase: the ranks spawned on the one card (gloo), how long a rank may
 # run, the steps of the NCCL one-rank check, the staged rows split over the ranks, the
@@ -2217,6 +2262,243 @@ def baselines_phase(calib, images: np.ndarray, truth: list, card: str) -> dict:
             "summaries": inference["summaries"], "deepcalib_train": training}
 
 
+# ---------------------------------------------------------------- hub_pose phase
+
+def original_state_dict(tree: dict) -> dict:
+    """The original GeoCalib torch state_dict (as tensors) whose conversion is the Flax
+    `tree`: the converter's table read backwards (HWIO kernels back to OIHW), with the
+    BatchNorm counters the original carries."""
+    sd = {}
+    for key, (path, kind) in convert_torch._build_mapping().items():
+        node = tree
+        for k in path:
+            node = node[k]
+        leaf = np.asarray(node)
+        sd[key] = torch.from_numpy(np.ascontiguousarray(
+            leaf.transpose(3, 2, 0, 1) if kind == "conv" else leaf))
+        if key.endswith(".running_var"):
+            sd[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def counted_calibrate(cal, label: str, images, **kw) -> Tuple[dict, dict]:
+    """One calibrate as a path of its own: 1 NMF (bf16) and 31 pinhole LM launches."""
+    zero_counts()
+    out = cal.calibrate(images, **kw)
+    torch.cuda.synchronize()
+    counts = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches,
+              "lm_by_model": {k: n for k, n in lm_ops.lm_system.launches_by_model.items() if n}}
+    check(counts["nmf"] == 1 and counts["lm_by_model"] == {"pinhole": 31},
+          f"{label}: a calibrate must launch 1 NMF and 31 LM: {counts}")
+    return out, counts
+
+
+def outputs_equal(a: dict, b: dict) -> bool:
+    """Two calibrate outputs bit for bit: every tensor, the camera and the gravity."""
+    same = a.keys() == b.keys()
+    for k in a:
+        x, y = a[k], b[k]
+        if k in ("camera", "gravity"):
+            x, y = (x.data, y.data) if k == "camera" else (x.vec3d, y.vec3d)
+        same = same and (not torch.is_tensor(x) or torch.equal(x, y))
+    return same
+
+
+def hub_check(calib, images: np.ndarray, card: str) -> dict:
+    """hub.load of an original .tar checkpoint made from the r05 tree, in temporary
+    directories outside the repository: request a's views bit for bit as the r05 msgpack
+    gives them, and again from the cached conversion."""
+    work = Path(tempfile.mkdtemp(prefix="gc_ckpt_"))
+    cache = Path(tempfile.mkdtemp(prefix="gc_cache_"))
+    before = os.environ.get("GEOCALIB_TPU_CACHE")
+    os.environ["GEOCALIB_TPU_CACHE"] = str(cache)
+    try:
+        t0 = time.perf_counter()
+        tar = work / "geocalib-r05.tar"
+        torch.save({"model": original_state_dict(read_flax_msgpack(WEIGHTS))}, tar)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cal = hub_lib.load(str(tar))
+        load_s = time.perf_counter() - t0
+        cached = cache / "geocalib-r05.msgpack"
+        check(cal.device.type == "cuda" and cached.exists(),
+              f"hub: device {cal.device}, cached {cached.exists()}")
+        stamp = cached.stat().st_mtime_ns
+        cal.calibrate(images, batched=True)  # warm
+        out, c_hub = counted_calibrate(cal, "hub", images, batched=True)
+        ref, c_ref = counted_calibrate(calib, "r05 msgpack", images, batched=True)
+        first = outputs_equal(out, ref)
+        del cal
+        t0 = time.perf_counter()
+        cal = hub_lib.load(str(tar))
+        reload_s = time.perf_counter() - t0
+        again, c_again = counted_calibrate(cal, "hub from its cache", images, batched=True)
+        second = outputs_equal(again, ref) and cached.stat().st_mtime_ns == stamp
+        del cal
+        log(f"hub: original checkpoint written in {save_s:.1f} s, converted and loaded in "
+            f"{load_s:.1f} s, loaded from the cache in {reload_s:.1f} s; request a bit for bit "
+            f"as the r05 msgpack gives it: {first}, from the cache: {second}; card {card}")
+        check(first and second, "hub: the converted weights do not give the r05 msgpack's bits")
+        launches = [c_hub, c_ref, c_again]
+        return {"bitwise": first, "cached_bitwise": second, "save_s": save_s, "load_s": load_s,
+                "reload_s": reload_s, "launches": launches}
+    finally:
+        if before is None:
+            os.environ.pop("GEOCALIB_TPU_CACHE", None)
+        else:
+            os.environ["GEOCALIB_TPU_CACHE"] = before
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def pose_scene(rng: np.random.Generator, roll: float, pitch: float, vfov: float, h: int, w: int):
+    """A known pose of a camera with this roll, pitch and vFoV (radians) and a random yaw
+    about the world's gravity (0, 0, -1), POSE_POINTS points of a ground plane 1.5 below it
+    that project into the h x w image, and their pixels, the first POSE_OUTLIER_SHARE of
+    them replaced by outliers at least POSE_OUTLIER_MIN_PX from the true projection."""
+    g_world = np.array([0.0, 0.0, -1.0])
+    # Gravity.from_rp's vector, in float64 so that the true rotation is orthonormal
+    g_cam = np.array([-math.sin(roll) * math.cos(pitch), -math.cos(roll) * math.cos(pitch),
+                      math.sin(pitch)])
+    R = pose_lib.rotation_aligning(g_world, g_cam) @ pose_lib.rot_z(rng.uniform(-math.pi, math.pi))
+    f = h / 2 / math.tan(vfov / 2)
+    camera = {"model": "PINHOLE", "width": w, "height": h, "params": [f, f, w / 2, h / 2]}
+    centre = np.array([*rng.uniform(-5, 5, 2), 0.0])
+    t = -R @ centre
+    X = np.concatenate([centre[:2] + rng.uniform(-40, 40, (20000, 2)), np.zeros((20000, 1))], 1)
+    for side in (1.5, -1.5):  # the plane on the side of the camera the image sees
+        X[:, 2] = side
+        p2d, front = pose_lib.project((R @ X.T).T + t, camera)
+        seen = front & (p2d >= 0).all(1) & (p2d[:, 0] < w) & (p2d[:, 1] < h)
+        if seen.sum() >= POSE_POINTS:
+            break
+    idx = rng.choice(np.nonzero(seen)[0], POSE_POINTS, replace=False)
+    X, p2d = X[idx], p2d[idx].copy()
+    k = int(POSE_OUTLIER_SHARE * POSE_POINTS)
+    out = rng.uniform([0, 0], [w, h], (k, 2))
+    near = np.linalg.norm(out - p2d[:k], axis=1) < POSE_OUTLIER_MIN_PX
+    while near.any():
+        out[near] = rng.uniform([0, 0], [w, h], (int(near.sum()), 2))
+        near = np.linalg.norm(out - p2d[:k], axis=1) < POSE_OUTLIER_MIN_PX
+    p2d[:k] = out
+    return R, t, X, p2d, camera, g_cam
+
+
+def angle_deg(a: np.ndarray, b: np.ndarray) -> float:
+    """The angle of two vectors, accurate when it is small (atan2 of sine and cosine)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return math.degrees(math.atan2(np.linalg.norm(np.cross(a, b)), a @ b))
+
+
+def rotation_deg(Ra: np.ndarray, Rb: np.ndarray) -> float:
+    """The angle of Ra Rbᵀ from its chord ‖Ra − Rb‖_F = 2√2 sin(θ/2): accurate when small."""
+    return math.degrees(2 * math.asin(min(1.0, np.linalg.norm(Ra - Rb) / (2 * math.sqrt(2)))))
+
+
+class FixedCalibration:
+    """A calibrator that answers with a calibration already made (for the CPU rerun)."""
+
+    def __init__(self, calib: dict):
+        self.calib = calib
+
+    def calibrate(self, image, priors=None):
+        return {"gravity": Gravity(torch.from_numpy(self.calib["gravity_vec"])),
+                "gravity_uncertainty": torch.tensor(self.calib["gravity_uncertainty"])}
+
+
+def pose_check(calib, images: np.ndarray, truth: list, card: str) -> dict:
+    """AbsolutePoseEstimator with the card's GeoCalib on request a's first views, against
+    the same estimator on the CPU given the same calibration, and against the true pose."""
+    rng = np.random.default_rng(11)
+    est = pose_lib.AbsolutePoseEstimator(calibrator=calib)
+    h, w = images.shape[1:3]
+    views, launches = [], []
+    for i in range(POSE_VIEWS):
+        roll, pitch, vfov = (math.radians(x) for x in truth[i])
+        R, t, X, p2d, camera, g_true = pose_scene(rng, roll, pitch, vfov, h, w)
+        zero_counts()
+        t0 = time.perf_counter()
+        ret, cal = est(images[i], p2d, X, camera)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {"lm_system": lm_ops.lm_system.launches, "nmf": nmf_ops.nmf.launches,
+                  "lm_by_model": {k: n for k, n in lm_ops.lm_system.launches_by_model.items()
+                                  if n}}
+        check(counts["nmf"] == 1 and counts["lm_by_model"] == {"pinhole": 31},
+              f"pose view {i}: its calibrate must launch 1 NMF and 31 LM: {counts}")
+        launches.append(counts)
+        ret_cpu, cal_cpu = pose_lib.AbsolutePoseEstimator(calibrator=FixedCalibration(cal))(
+            images[i], p2d, X, camera)
+        same = ret.keys() == ret_cpu.keys() and all(
+            np.array_equal(np.asarray(ret[k]), np.asarray(ret_cpu[k]))
+            for k in ("success", "R", "tvec", "qvec", "inliers", "num_inliers") if k in ret)
+        branch = ("gravity" if cal["gravity_uncertainty"] <= est.opts.max_uncertainty
+                  else "pnp (planar: degenerate, not judged)")
+        g_err = angle_deg(cal["gravity_vec"], g_true)
+        bound = POSE_GRAVITY_SHARE * g_err + POSE_FLOOR_DEG
+        solved = bool(ret.get("success"))
+        entry = {"branch": branch, "success": solved, "gravity_err_deg": g_err,
+                 "gravity_uncertainty_deg": math.degrees(cal["gravity_uncertainty"]),
+                 "rotation_err_deg": rotation_deg(ret["R"], R) if solved else None,
+                 "bound_deg": bound,
+                 "translation_err": float(np.linalg.norm(ret["tvec"] - t)) if solved else None,
+                 "inliers": int(ret.get("num_inliers", 0)), "cpu_bitwise": same, "ms": ms}
+        log(f"pose view {i}: {json.dumps(entry)}; card {card}")
+        check(same, f"pose view {i}: the CPU rerun differs from the card's run")
+        if branch == "gravity":
+            check(solved and entry["rotation_err_deg"] <= bound,
+                  f"pose view {i}: rotation {entry['rotation_err_deg']} deg over its bound "
+                  f"{bound:.4f}")
+        views.append(entry)
+    check(any(v["branch"] == "gravity" for v in views), "pose: no view took the gravity branch")
+    return {"views": views, "launches": launches}
+
+
+def winograd_check(card: str) -> dict:
+    """winograd_conv3x3 on the card against F.conv2d, float32, TF32 off, both timed."""
+    rng = np.random.default_rng(5)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    try:
+        for shape in WINOGRAD_SHAPES:
+            B, H, W, C, F = shape
+            x = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(np.float32)).cuda()
+            k = torch.from_numpy((rng.normal(size=(3, 3, C, F)) / 3).astype(np.float32)).cuda()
+            b = torch.from_numpy(rng.normal(size=(F,)).astype(np.float32)).cuda()
+            x_nchw, k_oihw = x.permute(0, 3, 1, 2).contiguous(), k.permute(3, 2, 0, 1).contiguous()
+            u = winograd.transform_kernel(k)
+            wino = lambda: winograd.winograd_conv3x3(x, None, b, u=u)  # noqa: E731
+            conv = lambda: torch.nn.functional.conv2d(x_nchw, k_oihw, b, padding=1)  # noqa: E731
+            got, want = wino(), conv().permute(0, 2, 3, 1)
+            err = (got - want).abs()
+            ok = bool((err <= WINOGRAD_TOL + WINOGRAD_TOL * want.abs()).all())
+            row = {"shape": list(shape), "max_abs_err": float(err.max()), "ok": ok,
+                   "ms": cuda_ms(wino), "conv2d_ms": cuda_ms(conv)}
+            log(f"winograd {json.dumps(row)}; card {card}")
+            check(ok, f"winograd {shape}: off F.conv2d by {row['max_abs_err']:.3g}")
+            rows.append(row)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return {"shapes": rows}
+
+
+def hub_pose_phase(calib, images: np.ndarray, truth: list, card: str) -> dict:
+    """The hub, pose estimation and Winograd on the card (see the module docstring)."""
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    t_phase = time.perf_counter()
+    hub = hub_check(calib, images, card)
+    pose = pose_check(calib, images, truth, card)
+    wino = winograd_check(card)
+    counted = hub["launches"] + pose["launches"]
+    seconds = time.perf_counter() - t_phase
+    log(f"hub_pose phase: {seconds:.1f} s; card {card}")
+    return {"launches": {k: sum(c[k] for c in counted) for k in ("lm_system", "nmf")},
+            "lm_by_model": {"pinhole": sum(c["lm_by_model"]["pinhole"] for c in counted)},
+            "hub": {k: v for k, v in hub.items() if k != "launches"},
+            "pose": pose["views"], "winograd": wino["shapes"], "seconds": seconds}
+
+
 # ---------------------------------------------------------------- distributed phase
 
 def state_digest(state) -> str:
@@ -2845,13 +3127,15 @@ def main() -> int:
     generate = generate_phase(calib, card)
     demo = demo_phase(calib, generate["crops"]["openpano_radial_v2"], card)
     baselines = baselines_phase(calib, images, truth, card)
+    hub_pose = hub_pose_phase(calib, images, truth, card)
     distributed = distributed_phase(weights, calib, images, card,
                                     train["compare"]["float32 ift"]["kernels"]["leaf_rel"])
 
     by_model = {m: sum(c["lm_system_by_model"].get(m, 0) for c in counts.values())
                 + evaluation["lm_by_model"][m] + generate["launches"]["lm_by_model"].get(m, 0)
                 + demo["launches"]["lm_by_model"].get(m, 0)
-                + baselines["lm_by_model"].get(m, 0) for m in lm_ops.MODEL_IDS}
+                + baselines["lm_by_model"].get(m, 0) + hub_pose["lm_by_model"].get(m, 0)
+                for m in lm_ops.MODEL_IDS}
     by_model["pinhole"] += (train["launches"]["lm_system"] + loop["launches"]["lm_system"]
                             + distributed["launches"]["lm_system"])
     for model, entry in lm["per_model"].items():
@@ -2860,6 +3144,7 @@ def main() -> int:
                           "train": train["launches"][name], "loop": loop["launches"][name],
                           "generate": generate["launches"][name], "demo": demo["launches"][name],
                           "baselines": baselines["launches"][name],
+                          "hub_pose": hub_pose["launches"][name],
                           "distributed": distributed["launches"][name]}
     cost_only = lm.pop("cost_only")
     kernels = [
@@ -2900,6 +3185,7 @@ def main() -> int:
     log(json.dumps({"generate": {k: v for k, v in generate.items() if k != "crops"},
                     "demo": demo, "card": card}, default=str))
     log(json.dumps({"baselines": baselines, "card": card}, default=str))
+    log(json.dumps({"hub_pose": hub_pose, "card": card}, default=str))
     log(json.dumps({"distributed": distributed, "card": card}, default=str))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -65,9 +65,11 @@ def build_model(name: str, conf: Optional[Dict[str, Any]] = None) -> Tuple[Any, 
 
     conf keys are checked against the constructor's arguments (ValueError on
     unknown keys). The reserved key ``weights`` names pretrained weights, which
-    only ``networks.geocalib`` loads, from a local ``.msgpack`` of the JAX
-    package (read with ``read_flax_msgpack``, mapped with ``params_from_jax``
-    and loaded into the module). Returns ``(module, state_dict-or-None)``.
+    only ``networks.geocalib`` loads: a local ``.msgpack`` of the JAX package,
+    or a release name or original ``.tar`` checkpoint, which the hub converts
+    to one (``hub.cached_params_path``); the file is read with
+    ``read_flax_msgpack``, mapped with ``params_from_jax`` and loaded.
+    Returns ``(module, state_dict-or-None)``.
     """
     conf = dict(conf or {})
     weights = conf.pop("weights", None)
@@ -87,10 +89,9 @@ def build_model(name: str, conf: Optional[Dict[str, Any]] = None) -> Tuple[Any, 
                              f"explicitly instead")
         path = Path(str(weights))
         if path.suffix != ".msgpack":
-            raise NotImplementedError(
-                f"weights {str(weights)!r}: release names and reference .tar checkpoints need "
-                f"the hub and the torch-checkpoint conversion, not yet in the port (ROADMAP "
-                f"Queue 1 item 2); pass a local .msgpack of the JAX package")
+            from geocalib_tpu_torch.hub import cached_params_path
+
+            path = cached_params_path(str(weights))
         from geocalib_tpu_torch.models.weights import params_from_jax, read_flax_msgpack
 
         params = params_from_jax(read_flax_msgpack(path), conf.get("variant", "b"))

@@ -10,9 +10,10 @@ each import must name the standard library, torch, numpy, the package itself
 or chip_smoke, except that a function may import PIL, h5py or yaml (image
 files, h5 results and a user's YAML conf, as the JAX package does), wandb
 (an optional backend of the metrics writer), matplotlib (figures), gradio
-(the web demo), cv2 (HDR files, the webcam loop and UVP's line detector) or
-the external libraries that the import-gated baselines wrap
-(vp_estimation_with_prior_gravity, pytlsd, deeplsd, dust3r). The machine with the
+(the web demo), cv2 (HDR files, the webcam loop and UVP's line detector),
+selenium (the perceptual baseline's web driver) or the external libraries
+that the import-gated baselines wrap (vp_estimation_with_prior_gravity,
+pytlsd, deeplsd, dust3r). The machine with the
 card has none of the others. Every module of the package is then imported in
 a fresh interpreter, which must not have loaded jax, geocalib_tpu, PIL, h5py,
 yaml, wandb, tensorboard, matplotlib, gradio or cv2. The msgpack reader that replaces flax.serialization is
@@ -36,7 +37,7 @@ ROOT = Path(__file__).resolve().parents[1]
 ALLOWED = {"torch", "numpy", "geocalib_tpu_torch", "chip_smoke"}
 # optional on the card: imported where a file is read or written, or a backend started;
 # and the external libraries of the import-gated baselines (models/baselines.py)
-IN_FUNCTIONS = {"PIL", "h5py", "yaml", "wandb", "matplotlib", "gradio", "cv2",
+IN_FUNCTIONS = {"PIL", "h5py", "yaml", "wandb", "matplotlib", "gradio", "cv2", "selenium",
                 "vp_estimation_with_prior_gravity", "pytlsd", "deeplsd", "dust3r"}
 FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "geocalib_tpu", "triton"}
 FILES = sorted((ROOT / "geocalib_tpu_torch").rglob("*.py")) + [
@@ -127,6 +128,33 @@ def test_importing_the_baselines_loads_no_optional_module():
             + "print(sorted(m for m in ('jax', 'geocalib_tpu', 'cv2', 'PIL', 'h5py', 'yaml', "
             "'vp_estimation_with_prior_gravity', 'pytlsd', 'deeplsd', 'dust3r') "
             "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+LAST_SLICE_MODULES = ["models/convert_torch.py", "hub.py", "pose_estimation.py",
+                      "eval/inspect.py", "eval/run_perceptual.py", "ops/winograd.py"]
+
+
+@pytest.mark.parametrize("name", LAST_SLICE_MODULES)
+def test_last_slice_modules_are_guarded(name):
+    """The converter, the hub, pose estimation, the inspector, the perceptual driver and
+    Winograd are among the files whose imports are held above (no jax, flax or
+    geocalib_tpu), and import h5py, matplotlib and selenium only inside functions."""
+    path = ROOT / "geocalib_tpu_torch" / name
+    assert path in FILES, name
+    tops = list(_imports(path))
+    assert all(in_function for top, in_function in tops if top in IN_FUNCTIONS), name
+    assert not {top for top, _ in tops} & FORBIDDEN, name
+
+
+def test_importing_the_last_slice_loads_no_optional_module():
+    modules = ["geocalib_tpu_torch." + n[:-3].replace("/", ".") for n in LAST_SLICE_MODULES]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
+            + "print(sorted(m for m in ('jax', 'flax', 'msgpack', 'geocalib_tpu', 'h5py', "
+            "'matplotlib', 'selenium', 'PIL') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr

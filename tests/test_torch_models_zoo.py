@@ -242,9 +242,22 @@ def test_build_model_autoloads_geocalib_weights(tmp_path):
         assert torch.equal(loaded[k], v) and torch.equal(module.state_dict()[k], v), k
 
 
-def test_build_model_refuses_other_weights():
+def test_build_model_refuses_other_weights(tmp_path, monkeypatch):
+    """Weights for another model are refused; release names and .tar checkpoints go
+    through the hub, which refuses an absent file and, with nothing cached, would
+    download (here its download raises, so nothing leaves the machine)."""
+    from geocalib_tpu_torch import hub
+
     with pytest.raises(ValueError, match="only supported for 'networks.geocalib'"):
         treg.build_model("networks.deepcalib", {"weights": "weights/deepcalib_deepcalib_r04.msgpack"})
-    for name in ("pinhole", "distorted", "checkpoint.tar"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    monkeypatch.setenv("GEOCALIB_TPU_CACHE", str(tmp_path))
+
+    def no_download(url, dest):
+        raise RuntimeError(f"download of {url} refused")
+
+    monkeypatch.setattr(hub, "_download", no_download)
+    with pytest.raises(FileNotFoundError, match="neither a release name nor a file"):
+        treg.build_model("networks.geocalib", {"weights": str(tmp_path / "checkpoint.tar")})
+    for name in ("pinhole", "distorted"):
+        with pytest.raises(RuntimeError, match=f"geocalib-{name}.tar refused"):
             treg.build_model("networks.geocalib", {"weights": name})
