@@ -4,12 +4,17 @@ card's RANSAC rule (ransac_rule).
 
 The rules run on the card; here their pure-numpy parts are held on made-up
 deviations and spreads, each beside a planted fault that must fail, and the
-controls and the planted LM fault are run on small CPU inputs: the tiny network
+controls and the planted LM faults are run on small CPU inputs: the tiny network
 at random weights (torch.manual_seed), float32 (bf16 convolutions are slow on the
 CPU), two 64×64 rendered views, and exact fields from the port's own geometry.
+The panorama views of requests g and h (pano_views) are rendered here from small
+panoramas of the gate's seeds, and tools/lm_state_trace.py's readings are taken on
+a tiny training step.
 """
 
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,6 +22,7 @@ import torch
 
 import chip_smoke as smoke
 import geocalib_tpu_torch
+from geocalib_tpu_torch.data import generate as gen_lib, pano as pano_lib
 from geocalib_tpu_torch.geometry.camera import Camera
 from geocalib_tpu_torch.geometry.gravity import Gravity
 from geocalib_tpu_torch.geometry.perspective_fields import get_perspective_field
@@ -207,3 +213,162 @@ def test_gate_spread_on_a_tiny_cpu_run():
     assert spread.shape == (2, 3) and spread.max() > 0.0
     rule = smoke.serving_rule(np.zeros_like(spread), spread, np.ones(2, bool))
     assert rule["ok"] and (spread * FACTOR < FLOOR).all() and not rule["ill"].any()
+
+
+def _exact_fields(model, k1=0.0):
+    B, h, w = 2, 48, 64
+    cam = Camera.from_dict({"height": torch.full((B,), float(h)),
+                            "width": torch.full((B,), float(w)), "vfov": torch.tensor([0.9, 1.2]),
+                            "k1": torch.full((B,), k1)}, model=model)
+    grav = Gravity.from_rp(torch.tensor([0.2, -0.1]), torch.tensor([0.1, 0.3]))
+    up, lat = get_perspective_field(cam, grav, h, w)
+    return {"up_field": up, "latitude_field": lat}
+
+
+@pytest.mark.parametrize("model, k1", [("pinhole", 0.0), ("simple_divisional", smoke.DIVISION_K1)])
+def test_planted_vfov_fault_moves_the_fixed_point_by_its_size(model, k1):
+    """shifted_lm(focal=True)'s G + H v, v in the focal alone: the converged vFoV moves by
+    0.02 degrees and the gravity stays, on exact fields of two cameras, pinhole and
+    through request h's lens."""
+    data = _exact_fields(model, k1)
+    cfg = LMConfig(camera_model=model, early_stop=False)
+    ref = lm_solver.run_lm(data, cfg)
+    with smoke.shifted_lm(focal=True):
+        got = lm_solver.run_lm(data, cfg)
+    vfov = torch.rad2deg((got.camera.vfov - ref.camera.vfov).abs().double())
+    np.testing.assert_allclose(vfov.numpy(), smoke.GATE_LM_SHIFT_DEG, rtol=0.1)
+    a, b = ref.gravity.vec3d.double(), got.gravity.vec3d.double()
+    angle = torch.rad2deg(torch.arccos(torch.clamp((a * b).sum(-1) / (a.norm(dim=-1)
+                                                                     * b.norm(dim=-1)), -1, 1)))
+    assert float(angle.max()) < 0.05 * smoke.GATE_LM_SHIFT_DEG
+
+
+def _small_panos():
+    return [pano_lib.synthetic_pano(s, 64, 128) for s in smoke.GATE_PANO_SEEDS]
+
+
+def test_gate_pano_seeds_are_streets_and_rooms():
+    """Each seed's first draw selects _city_pano (r < 0.40) or _room_pano (r < 0.65),
+    and both families are there; a panorama pixel is no coarser than a 480-row crop's
+    at the centre at vFoV 1.3 rad."""
+    draws = [np.random.default_rng(s).random() for s in smoke.GATE_PANO_SEEDS]
+    assert all(r < 0.65 for r in draws)
+    assert any(r < 0.40 for r in draws) and any(0.40 <= r < 0.65 for r in draws)
+    Hp, Wp = smoke.GATE_PANO_SIZE
+    assert Wp == 2 * Hp and math.pi / (Hp - 1) <= math.tan(0.65) / 240
+
+
+def test_gate_panos_are_the_serial_panoramas(monkeypatch):
+    """The host threads give each seed's panorama bit for bit."""
+    monkeypatch.setattr(smoke, "GATE_PANO_SIZE", (64, 128))
+    panos, seconds = smoke.gate_panos()
+    assert seconds >= 0.0 and len(panos) == len(smoke.GATE_PANO_SEEDS)
+    assert all(np.array_equal(a, b) for a, b in zip(panos, _small_panos()))
+
+
+@pytest.mark.parametrize("k1", [0.0, smoke.DIVISION_K1])
+def test_pano_views_repeat_bit_for_bit(k1):
+    """The same seeds give the same crops, bit for bit, and other crop seeds others."""
+    views = [smoke.pano_views(_small_panos(), np.random.default_rng(11), 6, 24, 32, k1=k1,
+                              device="cpu") for _ in range(2)]
+    assert np.array_equal(views[0][0], views[1][0]) and views[0][1] == views[1][1]
+    assert views[0][0].shape == (6, 24, 32, 3) and views[0][0].dtype == np.float32
+    assert np.isfinite(views[0][0]).all() and 0.0 <= views[0][0].min() <= views[0][0].max() <= 1.0
+    other = smoke.pano_views(_small_panos(), np.random.default_rng(12), 6, 24, 32, k1=k1,
+                             device="cpu")
+    assert not np.array_equal(views[0][0], other[0])
+
+
+@pytest.mark.parametrize("k1", [0.0, smoke.DIVISION_K1])
+def test_pano_views_truth_is_the_drawn_camera(k1):
+    """The truth is the drawn roll, pitch and vFoV, and each crop is its panorama
+    rendered by the drawn camera (roll, pitch, vFoV, yaw; k1) alone."""
+    panos = _small_panos()
+    images, truth = smoke.pano_views(panos, np.random.default_rng(11), 6, 24, 32, k1=k1,
+                                     device="cpu")
+    rng = np.random.default_rng(11)
+    model = "simple_divisional" if k1 else "pinhole"
+    for i in range(6):
+        roll, pitch = rng.uniform(-0.3, 0.3, 2)
+        vfov, yaw = rng.uniform(0.7, 1.3), rng.uniform(0.0, 2 * math.pi)
+        assert truth[i] == [math.degrees(roll), math.degrees(pitch), math.degrees(vfov)]
+        row = {"height": 24, "width": 32, "roll": roll, "pitch": pitch, "vfov": vfov, "k1": k1}
+        cam, grav, yaw_t = gen_lib.row_views([row], np.array([yaw], np.float32), model, "cpu")
+        crop = pano_lib.render_from_pano(torch.from_numpy(panos[i % len(panos)]), cam, grav, yaw_t)
+        assert np.array_equal(crop[0].numpy(), images[i])
+        assert cam.k[0, 0] == np.float32(k1)
+
+
+def _tiny_step():
+    """One compute_grads of the tiny network at random weights, float32, on two 64x64
+    rendered views (a closure over its state, batch and key)."""
+    from geocalib_tpu_torch.training import train_step as train_lib
+    cfg = train_lib.TrainConfig(variant="tiny", lm_steps=4, drop_path_rate=0.0,
+                                compute_dtype="float32")
+    torch.manual_seed(0)
+    net, state = train_lib.create_train_state(cfg, None, device="cpu")
+    images, truth = smoke.scenes(np.random.default_rng(0), 2, 64, 64)
+    gt = [[64.0, 64.0, math.radians(f), math.radians(r), math.radians(p), 0.0, 0.0]
+          for r, p, f in truth]
+    batch = {"image": torch.from_numpy(images), "gt_params": torch.tensor(gt)}
+    return lambda: train_lib.compute_grads(net, cfg, state, batch, (0, 5))
+
+
+def _trace_tool():
+    """tools/lm_state_trace.py as a module (tools/ is not a package)."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "lm_state_trace.py"
+    spec = importlib.util.spec_from_file_location("lm_state_trace", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_lm_state_readings_on_a_tiny_cpu_step():
+    """tools/lm_state_trace.py's readings: one recorded state a step, the LM loop's; on
+    the CPU the kernels' route and both hybrids are the plain version, so their state
+    is the plain route's in every lane, no gradient moves and no plane is written; a
+    state one ulp apart in one lane's gravity is named."""
+    trace = _trace_tool()
+    run = _tiny_step()
+    states = []
+    with smoke.plain_versions(lm=True, nmf=False), trace.recorded_lm_states(states):
+        ref = run()
+    assert len(states) == 1 and states[0]["camera"].shape == (2, 8)
+    readings = trace.run("tiny", run)
+    assert set(readings) == {"kernels", *smoke.LM_CONTROL_KINDS, "kernel in the loop alone",
+                             "kernel in the final system alone"}
+    for name in ("kernels", "kernel in the loop alone", "kernel in the final system alone"):
+        got = readings[name]
+        assert got["state"]["equal"] == [True, True] and got["state"]["leaves_moved"] == 0
+        assert got["state"]["read_leaf_rel"] == 0.0 and got["planes_written"] == []
+        assert all(v["apart"] == 0 for v in got["fields"].values())
+        assert all(v["apart"] == 0 for v in got["leaves"].values())
+    moved = dict(states[0], gravity=states[0]["gravity"].clone())
+    moved["gravity"][1, 0] = torch.nextafter(moved["gravity"][1, 0], torch.tensor(1.0))
+    reading = trace.lm_state_reading("planted", moved, states[0], ref, ref)
+    assert reading["equal"] == [True, False] and reading["apart"]["gravity"] == [1]
+    assert reading["apart"]["camera"] == [] and reading["gravity_max_abs"] > 0.0
+
+
+def test_gate_verdict_names_each_failure_by_its_fields():
+    """gate_verdict on a tiny CPU gate: the plain route against itself has no failure;
+    the planted gravity fault fails, and each failure is a record (mode, request, lane,
+    open, text) whose text names the same mode, request and lane."""
+    torch.manual_seed(0)
+    cal = geocalib_tpu_torch.GeoCalib(device="cpu", variant="tiny", compute_dtype="float32")
+    images, _ = smoke.scenes(np.random.default_rng(0), 2, 64, 64)
+    requests = {"a": (cal, images, {"batched": True})}
+    with smoke.plain_versions():
+        refs = smoke.gate_serve(requests)
+    spread = smoke.gate_spread(requests, refs["serving"], ("plain LM, G x (1 + 2^-22)",))
+    same = smoke.gate_verdict("plain", refs, refs, spread)
+    assert same["ok"] and same["failures"] == []
+    with smoke.plain_versions(), smoke.shifted_lm():
+        outs = smoke.gate_serve(requests)
+    planted = smoke.gate_verdict("planted", outs, refs, spread)
+    assert not planted["ok"] and not planted["ok_serving"]
+    for f in planted["failures"]:
+        assert set(f) == {"mode", "request", "lane", "open", "text"}
+        assert f["request"] == "a" and f["lane"] in (0, 1) and f["open"] is False
+        assert f["text"].startswith(f"{f['mode']} a[{f['lane']}]: ")
+    assert "serving" in {f["mode"] for f in planted["failures"]}

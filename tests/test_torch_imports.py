@@ -5,7 +5,7 @@ them.
 Every module of geocalib_tpu_torch/, chip_smoke.py, bench_torch.py and the
 card tools (tools/torch_path_witness.py, tools/nmf_stage_times.py,
 tools/gate_controls.py, tools/lm_kernel_sweep.py,
-tools/torch_step_profile.py) is parsed with ast;
+tools/torch_step_profile.py, tools/lm_state_trace.py) is parsed with ast;
 each import must name the standard library, torch, numpy, the package itself
 or chip_smoke, except that a function may import PIL, h5py or yaml (image
 files, h5 results and a user's YAML conf, as the JAX package does), wandb
@@ -43,7 +43,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "geocalib_tpu", "triton"}
 FILES = sorted((ROOT / "geocalib_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "torch_path_witness.py",
     ROOT / "tools" / "nmf_stage_times.py", ROOT / "tools" / "gate_controls.py",
-    ROOT / "tools" / "lm_kernel_sweep.py", ROOT / "tools" / "torch_step_profile.py"]
+    ROOT / "tools" / "lm_kernel_sweep.py", ROOT / "tools" / "torch_step_profile.py",
+    ROOT / "tools" / "lm_state_trace.py"]
 
 
 def _imports(path: Path):
